@@ -1,139 +1,414 @@
-// |STFT| of hop-strided frames, read straight from a reflect-extended signal.
+// |STFT| of hop-strided frames, read straight from a reflect-extended signal,
+// by a shared-memory FFT.
 //
 // Replaces ssr_eval_tpu/dsp/pallas_stft.py::fused_ct_stft_magnitude (the
-// Pallas kernel _ct_kernel, launched at pallas_stft.py:123).
+// Pallas kernel _ct_kernel, defined at pallas_stft.py:81 and launched at
+// pallas_stft.py:123).
 //
 //   out[b, f, k] = | sum_n ext[b, f*hop + n] * win[n] * exp(-2*pi*i*n*k/N) |
 //
 // for every frame f < max_frames and bin k <= N/2, for any N <= 4096 (the
 // Pallas kernel takes only N = 2^L * 128).  Framing, window, transform and
-// magnitude run in one pass: the frames are never written to device memory,
-// which the Pallas kernel could not do (Mosaic's alignment rules kept the
-// hop-441 framing outside it).
+// magnitude run in one pass: frames and complex spectra never reach device
+// memory.
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 outside the tensor
 // cores).  At the main path's shape (B = 16 buffers of 329,728 extended
 // samples, 744 frames, N = 2048, 1025 bins) a call must read 21 MB and
-// write 49 MB: ~70 MB, ~21 us.  An FFT-class algorithm needs ~0.7 GFLOP
-// for it (2.5 N log2 N per frame), ~0.01 ms, so the call is memory-bound.
+// write 49 MB: ~70 MB, ~21 us.  An FFT needs ~0.7 GFLOP for it (2.5 N log2 N
+// per frame), ~0.01 ms, so the call is memory-bound in principle; in
+// practice the shared-memory round trips of the FFT passes set the pace, so
+// the design keeps their number low (radix-16 passes, the input load fused
+// into the first pass, the last pass storing straight to its consumer).
 //
-// This kernel is a direct DFT, correct first: 16*744*1025*2048 = 2.5e10
-// complex multiply-adds, ~100 GFLOP, ~1.5 ms at the fp32 peak.  It sits far
-// above the bound.  A shared-memory FFT is the redesign that closes the gap.
+// Two transform paths, chosen by N (the wrapper's table plan,
+// dsp/stft_kernel.py::_fft_plan, builds the matching tables):
+//   split (N a power of two >= 2): z[n] = w x[2n] + i w x[2n+1] goes through
+//     one P = N/2 point complex FFT, then
+//     X[k] = (Z[k] + conj Z[P-k])/2 - i/2 e^{-2 pi i k/N} (Z[k] - conj Z[P-k]).
+//   Bluestein (every other N, and N = 1): a[n] = x[n] w[n] c[n] with the
+//     chirp c[n] = e^{-i pi (n^2 mod 2N)/N}; A = FFT_M(a); the table D holds
+//     conj(FFT_M(conj c, wrapped)) / M; |X[k]| = |FFT_M(conj(A) * D)[k]|.
+//     Only bins k < K = N/2 + 1 are kept, so the circular convolution needs
+//     M >= N + K - 1 (not 2N - 1): M = 4096 at N = 2229, 2048 at N = 743.
+//     |c[k]| = 1, so the output chirp multiply drops out of the magnitude.
 //
-// Design:
-//   grid (bin tiles, frame tiles, B); 128 threads, one bin each; every
-//   thread accumulates the same 16 frames, so one shared-memory read of a
-//   sample feeds 16 frames x 2 FMAs.
-//   Shared memory holds the cos/sin table of length N (built in float64 on
-//   the host, stored float32; <= 32 KB at N = 4096) and a 128-sample chunk
-//   of the 16 windowed frames, staged from ext at stride hop.
-//   The twiddle index steps as idx += k (mod N), exact in int32, so the loop
-//   has no sinf/cosf.  Accumulation is fp32 FMA in a fixed order (n
-//   ascending), so every (frame, bin) is independent of the batch it is in.
-//   No TF32, no tensor cores.
+// The complex FFT is Stockham (autosort, no bit reversal): radix-16 passes,
+// then one radix-2, 4 or 8 pass for the rest of log2 P, all unrolled at
+// compile time per P.  Each thread holds one radix-16 group (16 complex
+// values) in registers; a pass reads all groups, synchronises and writes
+// them back in place (one buffer per frame, P + P/16 float2: one pad slot
+// every 16 entries makes the stride-16 writes conflict-free).  The first
+// pass reads its groups straight from ext (coalesced 4-byte loads: hop
+// leaves frame starts unaligned); the last pass of each Bluestein FFT
+// stores through a functor (the first multiplies by D, the second writes
+// |.| to device memory as coalesced rows).  Twiddles come from a table laid
+// out per pass as [pass][r-1][k] (float64-built, float32-stored), so the
+// lanes of a warp read consecutive entries; there is no sinf/cosf and no
+// recurrence in the kernel, only the radix-16 butterfly's eight constants.
+//
+// Launch: a flat 1-D grid over the B x max_frames frames; a frame takes
+// T = P/16 threads, and a block holds 256/T frames when P < 4096.  Each
+// frame is transformed by the same code in a fixed order with no atomics,
+// so a row's output does not depend on its batch.  No TF32, no tensor
+// cores.
 
 #include <cuda_runtime.h>
 
+#include <array>
+#include <climits>
+#include <utility>
+
 namespace {
 
-constexpr int kThreads = 128;  // bins per block, one per thread
-constexpr int kFrames = 16;    // frames per block, held by every thread
-constexpr int kChunk = 128;    // samples of each frame staged per step
 constexpr int kMaxFft = 4096;
+constexpr int kBlockThreads = 256;  // threads of a block when P <= 4096
 
-__global__ void __launch_bounds__(kThreads)
-stft_magnitude_kernel(const float* __restrict__ ext, const float* __restrict__ win,
-                      const float2* __restrict__ twiddle, float* __restrict__ out,
-                      int ext_len, int n_fft, int hop, int max_frames, int n_bins,
-                      int tw_floats) {
-  extern __shared__ float4 smem_raw[];
-  float2* tw = reinterpret_cast<float2*>(smem_raw);               // [n_fft]
-  float* xs = reinterpret_cast<float*>(smem_raw) + tw_floats;     // [kChunk][kFrames]
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
-  const int b = blockIdx.z;
-  const int f0 = blockIdx.y * kFrames;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  const int kk = k < n_bins ? k : 0;  // idle lanes compute bin 0 and store nothing
-  const float* x = ext + static_cast<size_t>(b) * ext_len;
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
 
-  for (int i = threadIdx.x; i < n_fft; i += kThreads) tw[i] = twiddle[i];
+// Forward DFTs in natural order, in place.
+__device__ __forceinline__ void dft2(float2& a, float2& b) {
+  const float2 t = a;
+  a = cadd(t, b);
+  b = csub(t, b);
+}
 
-  float re[kFrames], im[kFrames];
+__device__ __forceinline__ void dft4(float2& v0, float2& v1, float2& v2, float2& v3) {
+  const float2 t0 = cadd(v0, v2), t1 = csub(v0, v2);
+  const float2 t2 = cadd(v1, v3), t3 = mul_neg_i(csub(v1, v3));
+  v0 = cadd(t0, t2);
+  v2 = csub(t0, t2);
+  v1 = cadd(t1, t3);
+  v3 = csub(t1, t3);
+}
+
+constexpr float kH = 0.70710678118654752440f;   // cos(pi/4)
+constexpr float kC1 = 0.92387953251128675613f;  // cos(pi/8)
+constexpr float kS1 = 0.38268343236508977173f;  // sin(pi/8)
+
+__device__ __forceinline__ void dft8(float2* v) {
+  dft4(v[0], v[2], v[4], v[6]);  // even samples -> e0..e3 in v[0], v[2], v[4], v[6]
+  dft4(v[1], v[3], v[5], v[7]);  // odd samples  -> o0..o3 in v[1], v[3], v[5], v[7]
+  const float2 o1 = cmul(v[3], make_float2(kH, -kH));   // * e^{-i pi/4}
+  const float2 o2 = mul_neg_i(v[5]);                    // * e^{-i pi/2}
+  const float2 o3 = cmul(v[7], make_float2(-kH, -kH));  // * e^{-3i pi/4}
+  const float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6], o0 = v[1];
+  v[0] = cadd(e0, o0);
+  v[4] = csub(e0, o0);
+  v[1] = cadd(e1, o1);
+  v[5] = csub(e1, o1);
+  v[2] = cadd(e2, o2);
+  v[6] = csub(e2, o2);
+  v[3] = cadd(e3, o3);
+  v[7] = csub(e3, o3);
+}
+
+// 16 = 4 x 4: DFT4 over n2 of v[n1 + 4 n2] into slot n1 + 4 k1, twiddle by
+// e^{-2 pi i n1 k1/16}, DFT4 over n1 into slot 4 k1 + k2, which holds
+// X[k1 + 4 k2]; the final transpose puts X in natural order.
+__device__ __forceinline__ void dft16(float2* v) {
 #pragma unroll
-  for (int f = 0; f < kFrames; ++f) {
-    re[f] = 0.f;
-    im[f] = 0.f;
-  }
-
-  for (int n0 = 0; n0 < n_fft; n0 += kChunk) {
-    const int len = min(kChunk, n_fft - n0);
-    __syncthreads();  // the previous chunk is consumed (first pass: table stored)
-    for (int i = threadIdx.x; i < kChunk * kFrames; i += kThreads) {
-      const int f = i / kChunk;
-      const int n = i - f * kChunk;
-      float v = 0.f;
-      if (n < len && f0 + f < max_frames) {
-        v = x[static_cast<size_t>(f0 + f) * hop + n0 + n] * win[n0 + n];
-      }
-      xs[n * kFrames + f] = v;
-    }
-    __syncthreads();
-
-    int idx = static_cast<int>((static_cast<long long>(n0) * kk) % n_fft);
-#pragma unroll 4
-    for (int n = 0; n < len; ++n) {
-      const float2 t = tw[idx];
-      idx += kk;
-      if (idx >= n_fft) idx -= n_fft;
-      const float4* xv = reinterpret_cast<const float4*>(xs + n * kFrames);
+  for (int n1 = 0; n1 < 4; ++n1) dft4(v[n1], v[n1 + 4], v[n1 + 8], v[n1 + 12]);
+  const float2 w1 = make_float2(kC1, -kS1), w2 = make_float2(kH, -kH), w3 = make_float2(kS1, -kC1);
+  const float2 w6 = make_float2(-kH, -kH), w9 = make_float2(-kC1, kS1);
+  v[5] = cmul(v[5], w1);
+  v[9] = cmul(v[9], w2);
+  v[13] = cmul(v[13], w3);
+  v[6] = cmul(v[6], w2);
+  v[10] = mul_neg_i(v[10]);
+  v[14] = cmul(v[14], w6);
+  v[7] = cmul(v[7], w3);
+  v[11] = cmul(v[11], w6);
+  v[15] = cmul(v[15], w9);
 #pragma unroll
-      for (int q = 0; q < kFrames / 4; ++q) {
-        const float4 v = xv[q];
-        re[4 * q + 0] = fmaf(v.x, t.x, re[4 * q + 0]);
-        im[4 * q + 0] = fmaf(-v.x, t.y, im[4 * q + 0]);
-        re[4 * q + 1] = fmaf(v.y, t.x, re[4 * q + 1]);
-        im[4 * q + 1] = fmaf(-v.y, t.y, im[4 * q + 1]);
-        re[4 * q + 2] = fmaf(v.z, t.x, re[4 * q + 2]);
-        im[4 * q + 2] = fmaf(-v.z, t.y, im[4 * q + 2]);
-        re[4 * q + 3] = fmaf(v.w, t.x, re[4 * q + 3]);
-        im[4 * q + 3] = fmaf(-v.w, t.y, im[4 * q + 3]);
-      }
-    }
-  }
-
-  if (k < n_bins) {
+  for (int k1 = 0; k1 < 4; ++k1) dft4(v[4 * k1], v[4 * k1 + 1], v[4 * k1 + 2], v[4 * k1 + 3]);
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
-      if (f0 + f < max_frames) {
-        out[(static_cast<size_t>(b) * max_frames + f0 + f) * n_bins + k] =
-            sqrtf(re[f] * re[f] + im[f] * im[f]);
-      }
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = a + 1; b < 4; ++b) {
+      const float2 s = v[4 * a + b];
+      v[4 * a + b] = v[4 * b + a];
+      v[4 * b + a] = s;
     }
   }
 }
 
+template <int R>
+__device__ __forceinline__ void dft(float2* v) {
+  if constexpr (R == 2) {
+    dft2(v[0], v[1]);
+  } else if constexpr (R == 4) {
+    dft4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 8) {
+    dft8(v);
+  } else {
+    dft16(v);
+  }
+}
+
+struct LoadBuf {
+  const float2* buf;
+  __device__ __forceinline__ float2 operator()(int i) const { return buf[pad(i)]; }
+};
+
+struct StoreBuf {
+  float2* buf;
+  __device__ __forceinline__ void operator()(int i, float2 v) const { buf[pad(i)] = v; }
+};
+
+// Split path input: z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1].
+struct LoadPairs {
+  const float* __restrict__ x;
+  const float* __restrict__ win;
+  bool valid;
+  __device__ __forceinline__ float2 operator()(int n) const {
+    if (!valid) return make_float2(0.f, 0.f);
+    return make_float2(__ldg(x + 2 * n) * __ldg(win + 2 * n),
+                       __ldg(x + 2 * n + 1) * __ldg(win + 2 * n + 1));
+  }
+};
+
+// Bluestein input: a[n] = x[n] w[n] c[n] for n < N, zero beyond.
+struct LoadChirp {
+  const float* __restrict__ x;
+  const float* __restrict__ win;
+  const float2* __restrict__ chirp;
+  int n_fft;
+  bool valid;
+  __device__ __forceinline__ float2 operator()(int n) const {
+    if (!valid || n >= n_fft) return make_float2(0.f, 0.f);
+    const float s = __ldg(x + n) * __ldg(win + n);
+    const float2 c = __ldg(chirp + n);
+    return make_float2(s * c.x, s * c.y);
+  }
+};
+
+// Bluestein, end of the first FFT: conj(A[i]) * D[i], back into the buffer.
+struct StoreConjMul {
+  float2* buf;
+  const float2* __restrict__ d;
+  __device__ __forceinline__ void operator()(int i, float2 v) const {
+    const float2 w = __ldg(d + i);
+    buf[pad(i)] = make_float2(v.x * w.x + v.y * w.y, v.x * w.y - v.y * w.x);
+  }
+};
+
+// Bluestein, end of the second FFT: |.| of the first n_bins points.
+struct StoreMag {
+  float* out;
+  int n_bins;
+  bool valid;
+  __device__ __forceinline__ void operator()(int i, float2 v) const {
+    if (valid && i < n_bins) out[i] = sqrtf(v.x * v.x + v.y * v.y);
+  }
+};
+
+// Threads per frame for a P-point FFT: one radix-16 group each.
+template <int P>
+__host__ __device__ constexpr int frame_threads() {
+  return P >= 16 ? P / 16 : 1;
+}
+
+// Threads per block: 256 (256/T frames) up to P = 4096, T beyond.
+template <int P>
+__host__ __device__ constexpr int block_threads() {
+  return frame_threads<P>() >= kBlockThreads ? frame_threads<P>()
+                                             : kBlockThreads / frame_threads<P>() * frame_threads<P>();
+}
+
+// Resident blocks per SM that the register allocation must allow, chosen
+// by timing each path at the main shapes on an H100 (PERF.md §6): the
+// split path runs best at 4 blocks of 256 threads (64 registers), Bluestein,
+// whose first pass keeps three input streams in flight, at 2 (128
+// registers; at 64 it spills).  Left to itself ptxas gives the 4096-point
+// Bluestein kernel ~170 registers: one block per SM.
+template <int P, bool kBluestein>
+__host__ __device__ constexpr int min_blocks() {
+  return block_threads<P>() > kBlockThreads ? 1 : kBluestein ? 2 : 4;
+}
+
+// One Stockham radix-R pass over P points whose sub-transforms have length
+// Ns so far.  Group j (< P/R) loads entries j + r P/R, twiddles entry r by
+// e^{-2 pi i r k/(Ns R)} (k = j mod Ns), runs the R-point DFT and stores
+// entry r at (j - k) R + k + r Ns.  The frame's T threads take groups
+// t, t + T, ...: 16/R each.  kReadsBuf: `load` reads the buffer that
+// `store` writes, so all reads finish before the first write.
+template <int P, int Ns, int R, bool kReadsBuf, class Load, class Store>
+__device__ __forceinline__ void fft_pass(const float2* __restrict__ tw, int t, const Load& load,
+                                         const Store& store) {
+  constexpr int T = frame_threads<P>();
+  constexpr int kSpan = P / R;
+  constexpr int kGroups = (kSpan + T - 1) / T;
+  float2 v[kGroups][R];
+#pragma unroll
+  for (int s = 0; s < kGroups; ++s) {
+    const int j = t + s * T;
+    if (kSpan % T == 0 || j < kSpan) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[s][r] = load(j + r * kSpan);
+    }
+  }
+  if constexpr (kReadsBuf) __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kGroups; ++s) {
+    const int j = t + s * T;
+    if (kSpan % T == 0 || j < kSpan) {
+      const int k = j & (Ns - 1);
+      if constexpr (Ns > 1) {
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[s][r] = cmul(v[s][r], __ldg(tw + (r - 1) * Ns + k));
+      }
+      dft<R>(v[s]);
+      const int base = (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) store(base + r * Ns, v[s][r]);
+    }
+  }
+  __syncthreads();
+}
+
+// The passes of a P-point forward FFT from sub-length Ns on: radix 16 while
+// P/Ns >= 16, then the rest.  The first pass loads through `load`, later
+// ones from the buffer; the last stores through `last`.
+template <int P, int Ns, bool kFirst, bool kFirstReadsBuf, class Load, class Last>
+__device__ __forceinline__ void fft_passes(float2* buf, const float2* __restrict__ tw, int t,
+                                           const Load& load, const Last& last) {
+  constexpr int R = P / Ns >= 16 ? 16 : P / Ns;
+  constexpr bool kLast = Ns * R == P;
+  if constexpr (kFirst && kLast) {
+    fft_pass<P, Ns, R, kFirstReadsBuf>(tw, t, load, last);
+  } else if constexpr (kFirst) {
+    fft_pass<P, Ns, R, kFirstReadsBuf>(tw, t, load, StoreBuf{buf});
+  } else if constexpr (kLast) {
+    fft_pass<P, Ns, R, true>(tw, t, LoadBuf{buf}, last);
+  } else {
+    fft_pass<P, Ns, R, true>(tw, t, LoadBuf{buf}, StoreBuf{buf});
+  }
+  if constexpr (!kLast) {
+    fft_passes<P, Ns * R, false, true>(buf, tw + (R - 1) * Ns, t, load, last);
+  }
+}
+
+// In-place forward FFT of a P-point frame: input through `load`, output
+// through `last`.  Every thread of the block calls it (barriers).
+template <int P, bool kLoadReadsBuf, class Load, class Last>
+__device__ __forceinline__ void fft(float2* buf, const float2* __restrict__ tw, int t,
+                                    const Load& load, const Last& last) {
+  if constexpr (P == 1) {
+    const float2 v = load(0);
+    if constexpr (kLoadReadsBuf) __syncthreads();
+    last(0, v);
+    __syncthreads();
+  } else {
+    fft_passes<P, 1, true, kLoadReadsBuf>(buf, tw, t, load, last);
+  }
+}
+
+// One frame per T threads; the block's frames are consecutive rows of the
+// flattened [B * max_frames] output.  P = 2^kLog2P is the complex FFT's
+// length: N/2 on the split path, M for Bluestein.
+template <bool kBluestein, int kLog2P>
+__global__ void __launch_bounds__(block_threads<1 << kLog2P>(), min_blocks<1 << kLog2P, kBluestein>())
+stft_fft_kernel(const float* __restrict__ ext, const float* __restrict__ win,
+                const float2* __restrict__ tw, const float2* __restrict__ table_a,
+                const float2* __restrict__ table_b, float* __restrict__ out, int ext_len,
+                int n_fft, int hop, int max_frames, int n_frames) {
+  constexpr int P = 1 << kLog2P;
+  constexpr int T = frame_threads<P>();
+  constexpr int kFrames = T >= kBlockThreads ? 1 : kBlockThreads / T;
+  constexpr int kBufLen = P + ((P - 1) >> 4);
+  extern __shared__ float2 smem[];
+  const int t = threadIdx.x % T;
+  const int fl = threadIdx.x / T;
+  float2* buf = smem + fl * kBufLen;
+  const int g = blockIdx.x * kFrames + fl;
+  const bool valid = g < n_frames;
+  const int b = valid ? g / max_frames : 0;
+  const int f = valid ? g - b * max_frames : 0;
+  const float* x = ext + static_cast<size_t>(b) * ext_len + static_cast<size_t>(f) * hop;
+  const int n_bins = n_fft / 2 + 1;
+  float* o = out + static_cast<size_t>(valid ? g : 0) * n_bins;
+
+  if constexpr (!kBluestein) {
+    fft<P, false>(buf, tw, t, LoadPairs{x, win, valid}, StoreBuf{buf});
+    for (int k = t; k < n_bins; k += T) {
+      const float2 zk = buf[pad(k & (P - 1))];
+      const float2 zr = buf[pad((P - k) & (P - 1))];
+      const float2 zc = make_float2(zr.x, -zr.y);
+      const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
+      const float2 od = mul_neg_i(make_float2(0.5f * (zk.x - zc.x), 0.5f * (zk.y - zc.y)));
+      const float2 xk = cadd(e, cmul(__ldg(table_a + k), od));
+      if (valid) o[k] = sqrtf(xk.x * xk.x + xk.y * xk.y);
+    }
+  } else {
+    fft<P, false>(buf, tw, t, LoadChirp{x, win, table_a, n_fft, valid}, StoreConjMul{buf, table_b});
+    fft<P, true>(buf, tw, t, LoadBuf{buf}, StoreMag{o, n_bins, valid});
+  }
+}
+
+using KernelFn = void (*)(const float*, const float*, const float2*, const float2*, const float2*,
+                          float*, int, int, int, int, int);
+
+template <bool kBluestein, int... L>
+std::array<KernelFn, sizeof...(L)> kernel_table(std::integer_sequence<int, L...>) {
+  return {{&stft_fft_kernel<kBluestein, L>...}};
+}
+
+// Split: P = N/2 <= 2048 (log2 P <= 11); Bluestein: M <= 8192 (log2 M <= 13).
+const auto kSplitKernels = kernel_table<false>(std::make_integer_sequence<int, 12>{});
+const auto kBluesteinKernels = kernel_table<true>(std::make_integer_sequence<int, 14>{});
+
 }  // namespace
 
-// ext [batch, ext_len] f32, win [n_fft] f32, twiddle [n_fft][2] f32 (cos,
-// sin of 2*pi*i/n_fft), out [batch, max_frames, n_fft/2 + 1] f32; all on the
-// device, contiguous.  The caller guarantees ext_len >= (max_frames - 1) *
-// hop + n_fft.  Launches on `stream` and returns cudaGetLastError().
+// ext [batch, ext_len] f32, win [n_fft] f32, out [batch, max_frames,
+// n_fft/2 + 1] f32; tables from dsp/stft_kernel.py::_fft_plan as interleaved
+// (re, im) f32: twiddle = the per-pass FFT twiddles of the fft_len-point
+// transform; split path: table_a = e^{-2 pi i k/N}, k <= N/2, table_b
+// unused; Bluestein: table_a = the chirp c[n], n < N, table_b = D[j],
+// j < fft_len.  All on the device, contiguous.  fft_len must be N/2 for a
+// power-of-two N >= 2 and the next power of two >= N + N/2 otherwise.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int ssr_stft_magnitude(const float* ext, const float* win, const float* twiddle,
-                                  float* out, int batch, int ext_len, int n_fft, int hop,
-                                  int max_frames, void* stream) {
+                                  const float* table_a, const float* table_b, float* out, int batch,
+                                  int ext_len, int n_fft, int hop, int max_frames, int fft_len,
+                                  void* stream) {
   if (batch <= 0 || n_fft <= 0 || n_fft > kMaxFft || hop <= 0 || max_frames <= 0 ||
-      ext_len < (max_frames - 1) * hop + n_fft) {
+      static_cast<long long>(ext_len) < static_cast<long long>(max_frames - 1) * hop + n_fft) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int n_bins = n_fft / 2 + 1;
-  const int tw_floats = (2 * n_fft + 3) / 4 * 4;  // keeps the frame chunk 16-byte aligned
-  const size_t smem = static_cast<size_t>(tw_floats + kChunk * kFrames) * sizeof(float);
-  const dim3 grid((n_bins + kThreads - 1) / kThreads, (max_frames + kFrames - 1) / kFrames,
-                  batch);
-  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  stft_magnitude_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ext, win, reinterpret_cast<const float2*>(twiddle), out, ext_len, n_fft, hop, max_frames,
-      n_bins, tw_floats);
+  const bool split = n_fft >= 2 && (n_fft & (n_fft - 1)) == 0;
+  int want = split ? n_fft / 2 : 1;
+  while (!split && want < n_fft + n_fft / 2) want <<= 1;
+  if (fft_len != want || twiddle == nullptr || table_a == nullptr ||
+      (!split && table_b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_frames = static_cast<long long>(batch) * max_frames;
+  if (n_frames > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int log2P = 0;
+  while ((1 << log2P) < fft_len) ++log2P;
+  const int T = fft_len >= 16 ? fft_len / 16 : 1;
+  const int frames_per_block = T >= kBlockThreads ? 1 : kBlockThreads / T;
+  const int buf_len = fft_len + ((fft_len - 1) >> 4);
+  const size_t smem = static_cast<size_t>(frames_per_block) * buf_len * sizeof(float2);
+  const long long blocks = (n_frames + frames_per_block - 1) / frames_per_block;
+  const KernelFn kernel = split ? kSplitKernels[log2P] : kBluesteinKernels[log2P];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), T * frames_per_block, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      ext, win, reinterpret_cast<const float2*>(twiddle),
+      reinterpret_cast<const float2*>(table_a), reinterpret_cast<const float2*>(table_b), out,
+      ext_len, n_fft, hop, max_frames, static_cast<int>(n_frames));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,15 @@
 """|STFT| of hop-strided frames: the hand-written CUDA kernel, its plain
-PyTorch version and the launch count.
+PyTorch version, the kernel's table plan and the launch count.
 
 Counterpart of ``ssr_eval_tpu/dsp/pallas_stft.py::fused_ct_stft_magnitude``
 (the Pallas kernel ``_ct_kernel``).  The kernel (``csrc/stft_magnitude.cu``)
 reads frames straight from the reflect-extended buffer at stride `hop`,
-applies the window, transforms and takes the magnitude in one pass, and
-writes only ``[B, max_frames, n_fft/2 + 1]`` float32.  It takes any
-n_fft <= 4096, so the 48 kHz (2229/480) and 16 kHz (743/160) metric STFTs
-run through it as well as the power-of-two sizes.
+applies the window, transforms by a shared-memory FFT and takes the
+magnitude in one pass, and writes only ``[B, max_frames, n_fft/2 + 1]``
+float32.  It takes any n_fft <= 4096 by one of two paths: a power of two
+through a half-length complex FFT and a split, every other size (the 48 kHz
+2229/480 and 16 kHz 743/160 metric STFTs among them) by Bluestein's
+chirp-z convolution.  `_fft_plan` builds each path's tables.
 
 `stft_magnitude_kernel` launches the kernel for a CUDA tensor and takes
 the plain version for a CPU tensor; it never falls back from the card.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,12 +35,73 @@ def stft_magnitude_plain(
     return torch.fft.rfft(fr * window, n=n_fft, dim=-1).abs()
 
 
+class FftPlan(NamedTuple):
+    """The kernel's transform for one n_fft: `kind` is "split" (a power of
+    two >= 2: an n_fft/2-point complex FFT, then the real split) or
+    "bluestein" (every other n_fft: two `fft_len`-point FFTs around the chirp
+    convolution).  Tables are float32 [n, 2] (re, im), built in float64:
+    twiddle: the per-pass Stockham twiddles of the fft_len-point FFT
+    (`stockham_radices`), [pass][r - 1][k] = e^{-2 pi i r k / (Ns R)};
+    table_a: split e^{-2 pi i k / n_fft} for k <= n_fft/2, or the chirp
+    c[n] = e^{-i pi (n^2 mod 2 n_fft) / n_fft} for n < n_fft;
+    table_b: Bluestein only, conj(FFT(b)) / fft_len for the wrapped
+    b[m] = conj(c[|m|]), m in (-n_fft, n_fft/2]."""
+
+    kind: str
+    fft_len: int
+    twiddle: np.ndarray
+    table_a: np.ndarray
+    table_b: np.ndarray | None
+
+
+def stockham_radices(fft_len: int) -> list[int]:
+    """Radices of the kernel's passes over a power-of-two length: radix 16,
+    then one radix-2, 4 or 8 pass for the rest of log2."""
+    p = fft_len.bit_length() - 1
+    return [16] * (p // 4) + ([1 << (p % 4)] if p % 4 else [])
+
+
+def _as_f32(z: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.stack([z.real, z.imag], axis=-1).astype(np.float32))
+
+
+def _stockham_twiddles(fft_len: int) -> np.ndarray:
+    rows, ns = [], 1
+    for radix in stockham_radices(fft_len):
+        m = (np.arange(1, radix)[:, None] * np.arange(ns)[None, :]) % (ns * radix)
+        rows.append(np.exp(-2j * np.pi * m.ravel() / (ns * radix)))
+        ns *= radix
+    # fft_len = 1 has no pass; one unused entry keeps the table non-empty.
+    return _as_f32(np.concatenate(rows) if rows else np.ones(1))
+
+
+@functools.lru_cache(maxsize=32)
+def _fft_plan(n_fft: int) -> FftPlan:
+    """The kernel's transform and tables for 1 <= `n_fft` <= MAX_N_FFT (see
+    FftPlan)."""
+    if n_fft >= 2 and (n_fft & (n_fft - 1)) == 0:
+        half = n_fft // 2
+        split = np.exp(-2j * np.pi * np.arange(half + 1) / n_fft)
+        return FftPlan("split", half, _stockham_twiddles(half), _as_f32(split), None)
+    # Bins k < K = n_fft//2 + 1 of the circular convolution are exact once
+    # M >= n_fft + K - 1.
+    m_len = 1 << (n_fft + n_fft // 2 - 1).bit_length()
+    n = np.arange(n_fft, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((n * n) % (2 * n_fft)) / n_fft)
+    b = np.zeros(m_len, np.complex128)
+    b[: n_fft // 2 + 1] = np.conj(chirp[: n_fft // 2 + 1])
+    if n_fft > 1:
+        b[m_len - n_fft + 1 :] = np.conj(chirp[1:][::-1])
+    d = np.conj(np.fft.fft(b)) / m_len
+    return FftPlan("bluestein", m_len, _stockham_twiddles(m_len), _as_f32(chirp), _as_f32(d))
+
+
 @functools.lru_cache(maxsize=16)
-def _twiddle(n_fft: int, device: torch.device) -> torch.Tensor:
-    """[n_fft, 2] float32 (cos, sin)(2*pi*i/n_fft), built in float64."""
-    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
+def _tables(n_fft: int, device: torch.device) -> tuple[int, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(fft_len, twiddle, table_a, table_b) of `_fft_plan(n_fft)` on `device`."""
+    plan = _fft_plan(n_fft)
+    tabs = (plan.twiddle, plan.table_a, plan.table_b)
+    return (plan.fft_len, *(None if a is None else torch.from_numpy(a).to(device) for a in tabs))
 
 
 @functools.lru_cache(maxsize=1)
@@ -46,7 +110,7 @@ def _launcher():
     from ssr_eval_tpu_torch.dsp import _build
 
     fn = _build.library("stft_magnitude").ssr_stft_magnitude
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,12 +157,13 @@ def stft_magnitude_kernel(
     rows = ext.reshape(-1, ext.shape[-1])
     n_bins = n_fft // 2 + 1
     out = torch.empty(rows.shape[0], max_frames, n_bins, device=ext.device, dtype=torch.float32)
-    tw = _twiddle(n_fft, ext.device)
+    fft_len, tw, tab_a, tab_b = _tables(n_fft, ext.device)
     with torch.cuda.device(ext.device):
         stream = torch.cuda.current_stream(ext.device).cuda_stream
         rc = fn(
-            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), out.data_ptr(),
-            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, stream,
+            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(),
+            None if tab_b is None else tab_b.data_ptr(), out.data_ptr(),
+            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, stream,
         )
     if rc != 0:
         raise RuntimeError(f"stft_magnitude kernel launch failed: CUDA error {rc}")
