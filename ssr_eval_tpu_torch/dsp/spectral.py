@@ -41,6 +41,7 @@ class StftConfig(NamedTuple):
     hop: int
     win_length: Optional[int] = None  # None -> n_fft
     center: bool = True  # reflect padding of n_fft // 2 on each side
+    pad_mode: str = "reflect"  # the only mode (librosa's default)
 
     @property
     def win(self) -> int:

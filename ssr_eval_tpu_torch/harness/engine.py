@@ -6,14 +6,27 @@ Dataflow per (native_sr, length-bucket) batch of utterances:
       └─ device (torch, queued asynchronously on the card):
            resample native->input_sr and native->evaluation_sr
            target |STFT| + its SSIM box moments      (once per utterance)
-           fft-family forward STFT                   (once per utterance)
-           for each spec: degrade (mask + iSTFT) -> testee.infer_batch
-                          -> resample output->evaluation_sr -> metrics
+           for each family (specs grouped by `family_key`):
+             spec-independent degradation work       (once per utterance,
+                                                      e.g. the fft STFT)
+             for each spec: degrade -> testee.infer_batch
+                            -> resample output->evaluation_sr -> metrics
       └─ host: collate per-file metric dicts (reference-compatible keys)
+
+mp3 specs round-trip through the host codec: one job per utterance goes to
+a codec thread pool when its batch is dispatched, and the results are
+collected at drain time (`codec_wait`), so codec work overlaps decode and
+device work.  A device testee then scores each mp3 spec's batch in one
+infer -> resample -> metrics chain.
 
 Host testees (`BasicTestee.infer`) are bridged: the degraded batch goes
 to host numpy, each utterance is inferred there, and the outputs come back
 for batched scoring.
+
+metrics_backend="host_float64" recomputes the fused path's metrics in
+float64 NumPy (`metrics.host_reference`) over the device-produced estimate
+and ground-truth waveforms, as the JAX engine does; mp3 and host-testee
+scores stay on the device.
 
 Batches are padded to a fixed size with copies of their first row; padding
 rows are dropped at collation.  Every per-utterance computation is
@@ -23,6 +36,7 @@ or inside any batch.
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -31,7 +45,6 @@ import torch
 
 from ssr_eval_tpu_torch.degrade.apply import (
     build_family_apply,
-    build_family_degrader,
     build_family_pre,
     family_key,
     spec_params,
@@ -56,9 +69,9 @@ from ssr_eval_tpu_torch.utils.profiling import StageTimers
 
 METRIC_KEYS = ("lsd", "log_sispec", "sispec", "ssim")
 
-# Batches whose device results may stay queued before the oldest is
-# collected: the host decodes and enqueues batch k+1 while the card still
-# computes batch k.
+# Batches whose device results (or codec jobs) may stay queued before the
+# oldest is collected: the host decodes and enqueues batch k+1 while the
+# card still computes batch k.
 MAX_PENDING = 2
 
 
@@ -78,11 +91,19 @@ class EvalEngine:
         io_workers=8,
         journal=None,
         input_res_type="polyphase",
+        metrics_backend="device",
     ):
         self.device = resolve_device(device)
         self.specs = list(specs)
+        # Device specs grouped by family key (first-appearance order); an
+        # unknown family raises ValueError here.
+        self.groups = {}
         for spec in self.specs:
-            family_key(spec)  # raises for families the port does not run yet
+            key = family_key(spec)
+            if spec.family != "mp3":
+                self.groups.setdefault(key, []).append(spec)
+        self.device_specs = [s for g in self.groups.values() for s in g]  # `_degraded` order
+        self.mp3_specs = [s for s in self.specs if s.family == "mp3"]
         self.input_sr = int(input_sr)
         self.output_sr = int(output_sr)
         self.evaluation_sr = int(evaluation_sr)
@@ -95,6 +116,9 @@ class EvalEngine:
         if input_res_type not in ("polyphase", "kaiser_best"):
             raise ValueError(f"input_res_type must be 'polyphase' or 'kaiser_best', got {input_res_type!r}")
         self.input_res_type = input_res_type
+        if metrics_backend not in ("device", "host_float64"):
+            raise ValueError(f"metrics_backend must be 'device' or 'host_float64', got {metrics_backend!r}")
+        self.metrics_backend = metrics_backend
         self.stats = StageTimers()
         self.device_testee = hasattr(testee, "infer_batch")
         self._weights = {}  # plan key -> device copy of its Wd
@@ -142,15 +166,24 @@ class EvalEngine:
         out_plan, Wo = self._plan("out", self.output_sr, self.evaluation_sr, y.shape[1])
         return apply_resample(y, ny, out_plan, int(out_plan.out_length(y.shape[1])), Wo)
 
-    def _fused_batch(self, x_nat, len_nat, native_sr, lnat):
-        """The sweep chain for a device testee.  The ground-truth path
-        (resample + target |STFT| + SSIM moments) and the fft family's
-        forward STFT run once per utterance; degrade -> infer -> score runs
-        per spec.  Device testees preserve lengths (the reference itself
-        asserts |delta len| < 100), so the truncate-to-min length is shared
-        across specs.  -> (metrics [S, 4, B], [(ye, ne)] per spec or None)."""
-        x_in, n_in, gt, n_gt = self._prep(x_nat, len_nat, native_sr, lnat)
+    def _degraded(self, x_in, n_in):
+        """-> (spec, degraded batch) for every device spec, in
+        `device_specs` order; each family's spec-independent work runs once."""
         lin = x_in.shape[1]
+        for fkey, gspecs in self.groups.items():
+            ctx = build_family_pre(fkey, lin)(x_in, n_in)
+            deg_apply = build_family_apply(fkey, lin)
+            for spec in gspecs:
+                yield spec, deg_apply(ctx, x_in, n_in, spec_params(spec, lin, self.device))
+
+    def _fused_batch(self, x_in, n_in, gt, n_gt):
+        """The sweep chain for a device testee over every device spec.  The
+        target |STFT| and its SSIM moments run once per utterance;
+        degrade -> infer -> score runs per spec.  Device testees preserve
+        lengths (the reference itself asserts |delta len| < 100), so the
+        truncate-to-min length is shared across specs.
+        -> (metrics [S, 4, B] in `device_specs` order, [(ye, ne)] per spec
+        or None)."""
         ratio_plan = resample_poly_plan(self.output_sr, self.evaluation_sr, 1024)
         cfg = metric_stft_config(self.evaluation_sr)
         mf = cfg.max_frames(gt.shape[1])
@@ -160,20 +193,26 @@ class EvalEngine:
         m2 = (torch.arange(mf, device=gt.device)[None, :] < nf[:, None]).to(tgt_sp.dtype)
         moments = ssim_target_moments(tgt_sp * m2[:, :, None])
 
-        fkey = family_key(self.specs[0])
-        ctx = build_family_pre(fkey, lin)(x_in, n_in)
-        deg_apply = build_family_apply(fkey, lin)
+        want_audio = self.save_processed_result or self.metrics_backend == "host_float64"
         state = self._testee_state()
         rows, audio = [], []
-        for spec in self.specs:
-            d = deg_apply(ctx, x_in, n_in, spec_params(spec, lin))
+        for _, d in self._degraded(x_in, n_in):
             y, ny = self.testee.infer_batch(d, n_in, state)
             ye, ne = self._resample_out(y, ny)
             m = spectral_metrics_with_target(ye, min_len, tgt_sp, cfg, mf, moments)
             rows.append(torch.stack([m[k] for k in METRIC_KEYS]))
-            if self.save_processed_result:
+            if want_audio:
                 audio.append((ye, ne))
-        return torch.stack(rows), (audio if self.save_processed_result else None)
+        return torch.stack(rows), (audio if want_audio else None)
+
+    def _score_batch(self, y, ny, gt, n_gt):
+        """Resample a testee's output batch to the evaluation rate and score
+        it against the ground truth -> (metrics [4, B] numpy, (ye, ne))."""
+        ye, ne = self._resample_out(y, ny)
+        cfg = metric_stft_config(self.evaluation_sr)
+        mf = cfg.max_frames(min(ye.shape[1], gt.shape[1]))
+        m = spectral_metrics(ye, ne, gt, n_gt, cfg, mf)
+        return torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy(), (ye, ne)
 
     def _host_infer_and_score(self, results, paths, idxs, spec, d_h, n_in_h, gt, n_gt, n_real):
         """Bridge a host testee: per-utterance infer, then batched scoring."""
@@ -192,12 +231,57 @@ class EvalEngine:
             ny[j] = len(y)
         yb[n_real:] = yb[0]
         ny[n_real:] = ny[0]
-        ye, ne = self._resample_out(torch.from_numpy(yb).to(self.device), torch.from_numpy(ny).to(self.device))
-        cfg = metric_stft_config(self.evaluation_sr)
-        mf = cfg.max_frames(min(ye.shape[1], gt.shape[1]))
-        m = spectral_metrics(ye, ne, gt, n_gt, cfg, mf)
-        mstack = torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy()
-        self._collate(results, paths, idxs, spec, mstack, (ye, ne), n_real, extras)
+        marr, audio = self._score_batch(
+            torch.from_numpy(yb).to(self.device), torch.from_numpy(ny).to(self.device), gt, n_gt
+        )
+        self._collate(results, paths, idxs, spec, marr, audio, n_real, extras)
+
+    def _mp3_submit(self, ex, paths, idxs, spec, x_in_h, n_in_h, n_real):
+        """Queue one codec round trip per utterance on the codec pool;
+        -> futures.  LAME releases the GIL (the CLI backends run in
+        subprocesses), so codec work proceeds while the main thread decodes
+        and dispatches later batches."""
+        from ssr_eval_tpu_torch.degrade.codec import mp3_degrade
+
+        def one(j):
+            p = paths[idxs[j]]
+            stem = os.path.splitext(os.path.basename(p))[0]
+            cache = os.path.join(os.path.dirname(p), f"{stem}_{spec.key}.flac")
+            x = x_in_h[j, : n_in_h[j]]
+            return mp3_degrade(p, x, spec.sr, spec.kbps, cache_path=cache, device=self.device)
+
+        return [ex.submit(one, j) for j in range(n_real)]
+
+    def _mp3_collect(self, results, paths, job):
+        """Drain side: wait for a batch's codec futures, then score."""
+        idxs, spec, futs, x_shape, n_in_h, gt, n_gt, n_real = job
+        with self.stats.stage("codec_wait"):
+            outs = [f.result() for f in futs]
+        d_h = np.zeros(x_shape, np.float32)
+        for j, d in enumerate(outs):
+            d_h[j, : len(d)] = d
+        d_h[n_real:] = d_h[0]
+        if not self.device_testee:
+            self._host_infer_and_score(results, paths, idxs, spec, d_h, n_in_h, gt, n_gt, n_real)
+            return
+        # A device testee scores the whole codec-degraded batch in one
+        # infer -> resample -> metrics chain.
+        d = torch.from_numpy(d_h).to(self.device)
+        nd = torch.from_numpy(n_in_h).to(self.device)
+        y, ny = self.testee.infer_batch(d, nd, self._testee_state())
+        marr, audio = self._score_batch(y, ny, gt, n_gt)
+        self._collate(results, paths, idxs, spec, marr, audio, n_real)
+
+    def _host64_metrics(self, ye_h, ne_h, gt_h, ng_h, n_real):
+        """Float64 NumPy metrics over device-produced estimate and
+        ground-truth waveforms (PARITY.md deviation 4) -> [4, B]."""
+        from ssr_eval_tpu_torch.metrics.host_reference import evaluate_f64
+
+        vals = np.zeros((len(METRIC_KEYS), ye_h.shape[0]), np.float64)
+        for j in range(n_real):
+            m = evaluate_f64(ye_h[j, : ne_h[j]], gt_h[j, : ng_h[j]], self.evaluation_sr)
+            vals[:, j] = [m[k] for k in METRIC_KEYS]
+        return vals
 
     # ------------------------------------------------------------------
     # Host-side orchestration
@@ -280,7 +364,25 @@ class EvalEngine:
     def evaluate_files(self, paths):
         """-> {path: {spec_key: {metric: float, ...}}} in spec order."""
         results = {p: {} for p in paths}
-        pending = []
+        codec_ex = ThreadPoolExecutor(max_workers=self.io_workers) if self.mp3_specs else None
+        try:
+            self._evaluate_stream(paths, results, codec_ex)
+        except BaseException:
+            # Cancel queued codec jobs; in-flight ones finish and are dropped.
+            if codec_ex is not None:
+                codec_ex.shutdown(wait=False, cancel_futures=True)
+            raise
+        if codec_ex is not None:
+            codec_ex.shutdown(wait=True)
+        self.stats.add_utterances(len(paths))
+        # Each file's keys in spec order (families finish out of order).
+        order = [s.key for s in self.specs]
+        for p in results:
+            results[p] = {k: results[p][k] for k in order if k in results[p]}
+        return results
+
+    def _evaluate_stream(self, paths, results, codec_ex):
+        pending, mp3_pending = [], []
         stream = self._stream_batches(paths)
         while True:
             t = time.perf_counter()
@@ -289,17 +391,14 @@ class EvalEngine:
             if item is None:
                 break
             self.stats.counts["decode"] += 1
-            self._process_batch(item, results, paths, pending)
+            self._process_batch(item, results, paths, pending, mp3_pending, codec_ex)
         with self.stats.stage("drain"):
             while pending:
                 self._drain_one(results, paths, pending.pop(0))
-        self.stats.add_utterances(len(paths))
-        order = [s.key for s in self.specs]
-        for p in results:
-            results[p] = {k: results[p][k] for k in order if k in results[p]}
-        return results
+        for job in mp3_pending:
+            self._mp3_collect(results, paths, job)
 
-    def _process_batch(self, item, results, paths, pending):
+    def _process_batch(self, item, results, paths, pending, mp3_pending, codec_ex):
         (sr, b), idxs, xb, lens = item
         n_real = len(idxs)
         if not self.specs:
@@ -309,33 +408,40 @@ class EvalEngine:
             if x.dtype == torch.int16:
                 x = x.to(torch.float32) / 32768.0
             n = torch.from_numpy(lens).to(self.device)
-            if self.device_testee:
-                mstack, audio = self._fused_batch(x, n, sr, b)
-                pending.append((idxs, mstack, audio, n_real))
-            else:
-                x_in, n_in, gt, n_gt = self._prep(x, n, sr, b)
-        if self.device_testee:
-            with self.stats.stage("drain"):
-                while len(pending) > MAX_PENDING:
-                    self._drain_one(results, paths, pending.pop(0))
-            return
-        n_in_h = n_in.cpu().numpy()
-        degrade = build_family_degrader(family_key(self.specs[0]), x_in.shape[1])
-        for spec in self.specs:
-            d = degrade(x_in, n_in, spec_params(spec, x_in.shape[1]))
-            self._host_infer_and_score(
-                results, paths, idxs, spec, d.cpu().numpy(), n_in_h, gt, n_gt, n_real
-            )
+            x_in, n_in, gt, n_gt = self._prep(x, n, sr, b)
+            if self.mp3_specs or not self.device_testee:
+                # Host copies for the codec jobs and the host testee; taken
+                # before the fused chain is queued, so the wait is short.
+                x_in_h = x_in.cpu().numpy()
+                n_in_h = n_in.cpu().numpy()
+            for spec in self.mp3_specs:
+                futs = self._mp3_submit(codec_ex, paths, idxs, spec, x_in_h, n_in_h, n_real)
+                mp3_pending.append((idxs, spec, futs, x_in_h.shape, n_in_h, gt, n_gt, n_real))
+            if self.device_testee and self.device_specs:
+                mstack, audio = self._fused_batch(x_in, n_in, gt, n_gt)
+                gt_pair = (gt, n_gt) if self.metrics_backend == "host_float64" else None
+                pending.append((idxs, mstack, audio, n_real, gt_pair))
+        if not self.device_testee:
+            for spec, d in self._degraded(x_in, n_in):
+                self._host_infer_and_score(results, paths, idxs, spec, d.cpu().numpy(), n_in_h, gt, n_gt, n_real)
+        with self.stats.stage("drain"):
+            while len(pending) > MAX_PENDING:
+                self._drain_one(results, paths, pending.pop(0))
+        while len(mp3_pending) > MAX_PENDING:
+            self._mp3_collect(results, paths, mp3_pending.pop(0))
 
     def _drain_one(self, results, paths, item):
         """Bring one batch's metrics to the host and collate them."""
-        idxs, mstack, audio, n_real = item
+        idxs, mstack, audio, n_real, gt_pair = item
         marr = mstack.cpu().numpy()  # [S, 4, B]
-        for si, spec in enumerate(self.specs):
-            self._collate(
-                results, paths, idxs, spec, marr[si],
-                audio[si] if audio is not None else None, n_real,
-            )
+        if gt_pair is not None:
+            gt_h, ng_h = gt_pair[0].cpu().numpy(), gt_pair[1].cpu().numpy()
+        for si, spec in enumerate(self.device_specs):
+            m = marr[si]
+            if gt_pair is not None:
+                ye_h, ne_h = audio[si][0].cpu().numpy(), audio[si][1].cpu().numpy()
+                m = self._host64_metrics(ye_h, ne_h, gt_h, ng_h, n_real)
+            self._collate(results, paths, idxs, spec, m, audio[si] if audio is not None else None, n_real)
 
     def _collate(self, results, paths, idxs, spec, marr, audio, n_real, extras=None):
         """marr: [4, B] metrics in METRIC_KEYS order; audio: (ye, ne) at the

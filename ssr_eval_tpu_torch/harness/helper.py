@@ -8,8 +8,11 @@ results-JSON naming follow the reference; the execution underneath is
 
 Extras (keyword-only, defaulted so reference call sites work unchanged):
 `device` (None = the CUDA card; "cpu" runs the plain PyTorch path),
-`batch_size`, `auto_download`, `input_res_type`.  Only `setting_fft` runs
-in this package so far; the other families raise NotImplementedError.
+`batch_size`, `auto_download`, `input_res_type`, `metrics_backend`
+("device", or "host_float64" for the float64 host recomputation).  Every
+degradation family runs: fft, the four IIR designs, subsampling and mp3
+(the last needs libmp3lame, sox or ffmpeg, and raises
+`CodecUnavailableError` without one).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from ssr_eval_tpu_torch.degrade.plan import expand_settings
 from ssr_eval_tpu_torch.harness.engine import EvalEngine
 from ssr_eval_tpu_torch.harness.resume import ResultJournal, load_partial
+from ssr_eval_tpu_torch.metrics.audio_metrics import AudioMetrics
 from ssr_eval_tpu_torch.utils.common import dict_mean, write_json
 
 VCTK_URL = "https://zenodo.org/record/6370601/files/vctk_test_48k.tar?download=1"
@@ -47,6 +51,7 @@ class SSR_Eval_Helper:
         batch_size=4,
         auto_download=True,
         input_res_type="polyphase",
+        metrics_backend="device",
     ):
         assert (
             evaluation_sr <= 48000
@@ -72,7 +77,7 @@ class SSR_Eval_Helper:
             setting_mp3_compression=self.setting_mp3_compression,
             sr=self.model_input_sr,
         )
-        # The engine resolves the device and rejects unported families
+        # The engine resolves the device and rejects unknown families
         # before anything touches the dataset directory.
         self.engine = EvalEngine(
             self.specs,
@@ -85,8 +90,11 @@ class SSR_Eval_Helper:
             save_processed_result=save_processed_result,
             test_name=test_name,
             input_res_type=input_res_type,
+            metrics_backend=metrics_backend,
         )
         self.device = self.engine.device
+        self.audio_metrics = AudioMetrics(self.evaluationset_sr, device=self.device)
+        self.unexpected_symbol_test_folder = "_.*#()_+=!@$%^&~"
         os.makedirs(test_data_root, exist_ok=True)
         if "s5" not in os.listdir(test_data_root) and auto_download:
             raise RuntimeError(
@@ -222,6 +230,7 @@ class SSR_Eval_Helper:
             family_key,
             spec_params,
         )
+        from ssr_eval_tpu_torch.degrade.codec import mp3_degrade
         from ssr_eval_tpu_torch.io.audio import load
         from ssr_eval_tpu_torch.utils.bucket import bucket_length
 
@@ -244,6 +253,106 @@ class SSR_Eval_Helper:
         n = torch.tensor([L], device=self.device)
         out = {}
         for spec in specs:
-            fn = build_family_degrader(family_key(spec), lmax)
-            out[spec.key] = fn(xb, n, spec_params(spec, lmax))[0, :L].cpu().numpy()
+            if spec.family == "mp3":
+                cache = self.cache_file_name(spec.key, file)
+                out[spec.key] = mp3_degrade(file, x, sr, spec.kbps, cache_path=cache, device=self.device)
+            else:
+                fn = build_family_degrader(family_key(spec), lmax)
+                out[spec.key] = fn(xb, n, spec_params(spec, lmax, self.device))[0, :L].cpu().numpy()
         return out
+
+    # ------------------------------------------------------------------
+    # Per-family degradation sweeps — public API parity (reference
+    # eval.py:302-421).  `preprocess` and the engine run the batched path;
+    # these single-utterance methods stay callable directly, with the
+    # reference's key naming, cutoff == sr decrement and shape asserts.
+    # ------------------------------------------------------------------
+
+    def _iir_sweep(self, tag, ftype, x, sr):
+        from ssr_eval_tpu_torch.degrade.lowpass import lowpass
+
+        ret_dict = {}
+        for low_rate in self.setting_lowpass_filtering["cutoff_freq"]:
+            for order in self.setting_lowpass_filtering["filter_order"]:
+                if low_rate == sr:
+                    low_rate -= 1
+                key = f"proc_{tag}_{low_rate}_{order}_{sr}"
+                ret_dict[key] = lowpass(x, low_rate // 2, sr, order=order, _type=ftype, device=self.device)
+        for k in ret_dict:
+            assert ret_dict[k].shape == x.shape, str((ret_dict[k].shape, x.shape))
+        return ret_dict
+
+    def lowpass_butterworth(self, file, x, sr):
+        return self._iir_sweep("bw", "butter", x, sr)
+
+    def lowpass_chebyshev(self, file, x, sr):
+        return self._iir_sweep("ch", "cheby1", x, sr)
+
+    def lowpass_ellip(self, file, x, sr):
+        return self._iir_sweep("el", "ellip", x, sr)
+
+    def lowpass_bessel(self, file, x, sr):
+        return self._iir_sweep("bessel", "bessel", x, sr)
+
+    def _single_sweep(self, setting, tag, _type, x, sr):
+        from ssr_eval_tpu_torch.degrade.lowpass import lowpass
+
+        ret_dict = {}
+        for low_rate in setting["cutoff_freq"]:
+            if low_rate == sr:
+                low_rate -= 1
+            key = f"proc_{tag}_{low_rate}_{sr}"
+            ret_dict[key] = lowpass(x, low_rate // 2, sr, order=1, _type=_type, device=self.device)
+        return ret_dict
+
+    def lowpass_stft_hard(self, file, x, sr):
+        return self._single_sweep(self.setting_fft, "fft", "stft_hard", x, sr)
+
+    def lowpass_subsampling(self, file, x, sr):
+        return self._single_sweep(self.setting_subsampling, "subsampling", "subsampling", x, sr)
+
+    def mp3_encoding(self, file, x, sr):
+        """Codec round-trip sweep (reference eval.py:302-325): encode at
+        each kbps, realign by cross-correlation, cache the aligned flac
+        next to the source (the reference writes it at :321)."""
+        from ssr_eval_tpu_torch.degrade.codec import mp3_degrade
+
+        ret_dict = {}
+        for low_kbps in self.setting_mp3_compression["low_kbps"]:
+            key = f"proc_mp3_{low_kbps}_{sr}"
+            target_file = self.cache_file_name(key, file)
+            ret_dict[key] = mp3_degrade(file, x, sr, low_kbps, cache_path=target_file, device=self.device)
+        return ret_dict
+
+    # Length helpers kept for API parity (reference eval.py:272-300).
+    def shift(self, x, shift):
+        ret = np.zeros_like(x)
+        if shift >= 0:
+            ret[:-shift] = x[shift:]
+        elif shift < 0:
+            ret[-shift:] = x[:-(-shift)]
+        return ret
+
+    def unify_length(self, x, target):
+        from ssr_eval_tpu_torch.degrade.codec import unify_length
+
+        return unify_length(x, target)
+
+    def pad(self, x, y):
+        """Zero-pad the shorter of two 1-D arrays to the longer's length
+        (reference eval.py:280-290; dead code there, kept for parity)."""
+        if x.shape[0] == y.shape[0]:
+            return x, y
+        if x.shape[0] > y.shape[0]:
+            cache_y = np.zeros_like(x)
+            cache_y[: y.shape[0]] = y
+            return x, cache_y
+        cache_x = np.zeros_like(y)
+        cache_x[: x.shape[0]] = x
+        return cache_x, y
+
+    def cache_file_name(self, key, file, suffix=".flac"):
+        return os.path.join(
+            os.path.dirname(file),
+            os.path.splitext(os.path.basename(file))[0] + "_" + key + suffix,
+        )

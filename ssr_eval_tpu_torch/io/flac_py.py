@@ -313,13 +313,55 @@ def _crc8(data: bytes) -> int:
     return crc
 
 
-def _crc16(data: bytes) -> int:
-    crc = 0
-    for b in data:
-        crc ^= b << 8
+def _crc16_step(crc: np.ndarray, byte: np.ndarray) -> np.ndarray:
+    """One byte of CRC-16 (poly 0x8005, MSB first) on uint16 lanes."""
+    return ((crc << 8) & 0xFFFF) ^ _CRC16_TABLE[(crc >> 8) ^ byte]
+
+
+def _crc16_table() -> np.ndarray:
+    t = np.zeros(256, np.int64)
+    for b in range(256):
+        crc = b << 8
         for _ in range(8):
             crc = ((crc << 1) ^ 0x8005) & 0xFFFF if crc & 0x8000 else (crc << 1) & 0xFFFF
-    return crc
+        t[b] = crc
+    return t
+
+
+_CRC16_TABLE = _crc16_table()
+_CRC16_LANE = 64  # bytes per lane
+
+
+def _crc16_shift_tables(n_bytes: int):
+    """(hi, lo) tables of the linear map 'append n_bytes zero bytes' on a
+    CRC: shift(c) = hi[c >> 8] ^ lo[c & 0xFF]."""
+    v = np.arange(256, dtype=np.int64)
+    hi, lo = v << 8, v.copy()
+    zero = np.zeros(256, np.int64)
+    for _ in range(n_bytes):
+        hi, lo = _crc16_step(hi, zero), _crc16_step(lo, zero)
+    return hi, lo
+
+
+_CRC16_SHIFT = _crc16_shift_tables(_CRC16_LANE)
+
+
+def _crc16(data: bytes) -> int:
+    """FLAC frame CRC-16.  With a zero initial value the CRC is linear and
+    leading zero bytes leave it unchanged, so the zero-padded message is cut
+    into 64-byte lanes whose CRCs run in lockstep (numpy), then folded:
+    crc = shift(crc) ^ lane_crc."""
+    buf = np.frombuffer(data, np.uint8).astype(np.int64)
+    pad = -len(buf) % _CRC16_LANE
+    lanes = np.concatenate([np.zeros(pad, np.int64), buf]).reshape(-1, _CRC16_LANE)
+    crc = np.zeros(lanes.shape[0], np.int64)
+    for i in range(_CRC16_LANE):
+        crc = _crc16_step(crc, lanes[:, i])
+    hi, lo = _CRC16_SHIFT
+    total = 0
+    for c in crc.tolist():
+        total = int(hi[total >> 8] ^ lo[total & 0xFF]) ^ c
+    return total
 
 
 def _utf8_number(n: int) -> bytes:
@@ -383,16 +425,24 @@ def encode_flac(path, data: np.ndarray, sr: int, bps: int = 16, block_size: int 
         head = fw.bytes()
         head += bytes([_crc8(head)])
 
-        bw = BitWriter()
-        for c in range(n_ch):
-            bw.write(0, 1)
-            bw.write(1, 6)  # VERBATIM
-            bw.write(0, 1)
-            col = blk[:, c]
-            for v in col:
-                bw.write(int(v), bps)
-        bw.align()
-        body = bw.bytes()
+        if bps % 8 == 0:
+            # Byte-aligned VERBATIM subframes: the header byte (zero pad,
+            # type 1, no wasted bits) and big-endian two's-complement samples.
+            nb = bps // 8
+            body = b"".join(
+                b"\x02" + blk[:, c].astype(">i8").view(np.uint8).reshape(bs, 8)[:, 8 - nb :].tobytes()
+                for c in range(n_ch)
+            )
+        else:
+            bw = BitWriter()
+            for c in range(n_ch):
+                bw.write(0, 1)
+                bw.write(1, 6)  # VERBATIM
+                bw.write(0, 1)
+                for v in blk[:, c]:
+                    bw.write(int(v), bps)
+            bw.align()
+            body = bw.bytes()
         frame = head + body
         crc = _crc16(frame)
         stream += frame + bytes([crc >> 8, crc & 0xFF])

@@ -16,3 +16,9 @@ def bucket_length(n: int, floor: int = 4096) -> int:
         if b >= n:
             return b
     return 1 << k
+
+
+def pow2_bucket(n: int, floor: int = 4096) -> int:
+    """max(floor, next power of two >= n): the single-utterance bucket of
+    the reference-API conveniences (lowpass, postprocessing)."""
+    return max(floor, 1 << (n - 1).bit_length())

@@ -239,12 +239,20 @@ def test_resume_skips_journaled_files(tmp_path, monkeypatch):
 
 
 def test_unported_family_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.9"):
-        ssr_eval_tpu_torch.SSR_Eval_Helper(
-            BatchedTestee(), 44100, 44100, test_data_root=str(tmp_path),
-            setting_lowpass_filtering={"filter": ["butter"], "cutoff_freq": [4000], "filter_order": [4]},
-            auto_download=False, device="cpu",
-        )
+    """Every family of the reference builds (no NotImplementedError is
+    left); a family the package does not know raises ValueError."""
+    from ssr_eval_tpu_torch.degrade.plan import DegradationSpec
+
+    helper = ssr_eval_tpu_torch.SSR_Eval_Helper(
+        BatchedTestee(), 44100, 44100, test_data_root=str(tmp_path),
+        setting_lowpass_filtering={"filter": ["butter"], "cutoff_freq": [4000], "filter_order": [4]},
+        setting_subsampling={"cutoff_freq": [4000]}, setting_mp3_compression={"low_kbps": [32]},
+        setting_fft={"cutoff_freq": [4000]}, auto_download=False, device="cpu",
+    )
+    assert [s.family for s in helper.specs] == ["iir", "subsampling", "mp3", "fft"]
+    with pytest.raises(ValueError, match="unknown degradation family 'gsm'"):
+        EvalEngine([DegradationSpec("proc_x", "gsm", None, 8000, 1, 44100)], 44100, 44100, 44100,
+                   BatchedTestee(), device="cpu")
 
 
 def test_preprocess_matches_jax(vctk):

@@ -108,7 +108,7 @@ def test_fft_degrade_round_trip_matches_jax():
     deg_t = tdeg.build_family_degrader(("fft",), lmax)
     deg_j = jax.vmap(jdeg.build_family_degrader(("fft",), lmax), in_axes=(0, 0, None))
     for st, sj in zip(specs_t, specs_j):
-        pt = tdeg.spec_params(st, lmax)
+        pt = tdeg.spec_params(st, lmax, torch.device("cpu"))
         pj = jdeg.spec_params(sj, lmax)
         assert pt["cut"] == int(pj["cut"])
         got = deg_t(torch.from_numpy(x), torch.from_numpy(lens), pt).numpy()
@@ -124,6 +124,9 @@ def test_reflect_extend_matches_jax():
 
 
 def test_unported_families_raise():
+    """Every family of the reference has its key, equal to the JAX
+    package's; only a family neither package knows raises."""
     spec = t_expand(setting_subsampling={"cutoff_freq": [8000]}, sr=44100)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
-        tdeg.family_key(spec)
+    assert tdeg.family_key(spec) == jdeg.family_key(j_expand(setting_subsampling={"cutoff_freq": [8000]}, sr=44100)[0])
+    with pytest.raises(ValueError, match="unknown degradation family"):
+        tdeg.family_key(spec._replace(family="gsm"))
