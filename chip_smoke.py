@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
              ssr_eval_tpu_torch/_build/ (one nvcc per source, in parallel).
   kernel     the |STFT| kernel on the card at the main path's shapes
              (2048/441, 2229/480 and 743/160, 16 buffers -> [16, 744,
-             n_bins]): max|kernel - plain| <= 1e-4 of max|plain| and
+             n_bins]; 2048/512 -> [16, 641, 1025], NVSR's post-processing
+             cutoff detection): max|kernel - plain| <= 1e-4 of max|plain| and
              max|kernel - float64 rfft| <= 2e-6 of its max (the plain
              version's float64 error printed beside it); kernel, plain and
              torch.stft (a yardstick the port never calls) timed with CUDA
@@ -39,6 +40,20 @@ Phases (any failure raises and the script exits non-zero):
              synthetic VCTK, 2 files per speaker) on the card: SiSpec and SSIM
              inside the golden TOL, LSD and log-SiSpec (float32 stop-band
              floors) within FLOOR_TOL of the JAX package's CPU pins.
+  nvsr       the full-width NVSRTestee("unet") (65M-parameter UNet + the
+             512-channel TFGAN vocoder, seeded random weights) through
+             SSR_Eval_Helper.evaluate on the sweep's data at the reference's
+             NVSR cutoffs (1-12 kHz), batch 16: warm-up and 2 timed runs,
+             peak memory, the model's FLOP per batch (FlopCounterMode) and a
+             profiled run; the |STFT| launch count is exact (1 target + 2
+             per spec per batch: NVSR.pre and the metric; 1 + 3 per spec for
+             NVSRPostProcTestee, run on 4 utterances).  Card vs CPU with the
+             same weights on 2 short utterances (per-pair metrics and
+             waveforms within NVSR_CARD_VS_CPU); examples/trained_small on
+             the card (vocoder check passes, NVSRPostProcTestee beats the
+             identity testee's LSD at every cutoff); bf16 vs fp32 per pair
+             within NVSR_BF16 (and LSD within the JAX package's 0.5), both
+             timed.
 
 Output: per-phase lines, then the card's name and power limit, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
@@ -103,6 +118,26 @@ GOLDEN_FAMILIES = {
     "proc_subsampling_16000_44100": {"lsd": 3.389415, "log_sispec": 8.356409, "sispec": 42.388617, "ssim": 0.624253},
 }
 FLOOR_TOL = {"lsd": 0.6, "log_sispec": 0.5}
+# The NVSR phase: the full-width NVSRTestee("unet") on the sweep's data at
+# the reference's NVSR cutoffs (examples/nvsr_main.py:31), seeded random
+# weights (the pretrained checkpoint is not in the repository).
+NVSR_CUTOFFS = [1000, 2000, 4000, 6000, 8000, 12000]
+NVSR_SEED = 234
+NVSR_BATCH = 16
+NVSR_POSTPROC_UTTS = 4
+NVSR_SHORT_SECONDS = 1.5  # the card-vs-CPU and trained_small utterances
+# Card vs the CPU with the same seeded full-width weights, per (file, spec)
+# pair and for the output waveforms (max |card - CPU| / max |CPU|): about
+# 5x the larger of the first two measured maxima on an H100 (LSD 2.6e-6,
+# log-SiSpec 1.0e-3, SiSpec 5.7e-6 dB, SSIM 9.0e-8, waveform 3.1e-6;
+# PERF.md).
+NVSR_CARD_VS_CPU = {"lsd": 1.5e-5, "log_sispec": 5e-3, "sispec": 3e-5, "ssim": 5e-7, "wave": 1.5e-5}
+NVSR_BF16_LSD = 0.5  # per pair, tests/test_models.py::test_bf16_inference_mode
+# bf16 vs fp32 per pair, about 5x the first measured maxima on an H100 (LSD
+# 3.96e-4, log-SiSpec 0.120, SiSpec 0.0191 dB, SSIM 3.6e-5; PERF.md): the
+# JAX package's 0.5 alone would pass a bf16 path that was badly wrong.
+NVSR_BF16 = {"lsd": 2e-3, "log_sispec": 0.6, "sispec": 0.1, "ssim": 2e-4}
+TRAINED_CUTOFFS = [2000, 4000, 6000]  # doubled by the helper: tests/test_trained_small.py:38
 
 
 def log(*a):
@@ -195,10 +230,11 @@ def phase_kernel():
     g = torch.Generator(device=dev).manual_seed(0)
     shapes = []
     # ext lengths of the main path for a 6 s utterance: the 44.1 kHz bucket
-    # (327,680) at 44.1 kHz evaluation, and that bucket resampled to the
-    # 48 kHz (356,660) and 16 kHz (118,886) evaluation rates; all give 744
-    # frames.
-    for n_fft, hop, body in ((2048, 441, 327680), (2229, 480, 356660), (743, 160, 118886)):
+    # (327,680) at 44.1 kHz evaluation (and NVSR.pre), and that bucket
+    # resampled to the 48 kHz (356,660) and 16 kHz (118,886) evaluation
+    # rates; all give 744 frames.
+    # 2048/512 is the NVSR post-processing cutoff detection on the bucket.
+    for n_fft, hop, body in ((2048, 441, 327680), (2229, 480, 356660), (743, 160, 118886), (2048, 512, 327680)):
         ext_len = body + 2 * (n_fft // 2)
         mf = 1 + (ext_len - n_fft) // hop
         ext = 0.1 * torch.randn(BATCH, ext_len, generator=g, device=dev)
@@ -657,6 +693,194 @@ def phase_families(work):
     return launches
 
 
+def _nvsr_testee(cls_name, device="cuda", **kw):
+    from ssr_eval_tpu_torch.models import testees
+
+    return getattr(testees, cls_name)(model_name="unet", seed=NVSR_SEED, device=device, **kw)
+
+
+def _nvsr_helper(testee, root, cutoffs, batch, device=None, name="chip_nvsr"):
+    import ssr_eval_tpu_torch
+
+    return ssr_eval_tpu_torch.SSR_Eval_Helper(
+        testee, input_sr=SR, output_sr=SR, evaluation_sr=SR, test_name=name, test_data_root=root,
+        setting_fft={"cutoff_freq": cutoffs}, auto_download=False, batch_size=batch, device=device,
+    )
+
+
+def _max_pair_delta(a, b, keys=METRICS):
+    pa, pb = _pairs(a), _pairs(b)
+    if not pa or set(pa) != set(pb):
+        raise AssertionError("two runs scored different (file, spec) pairs")
+    finite = all(math.isfinite(pa[p][k]) for p in pa for k in keys)
+    return {k: max(abs(pa[p][k] - pb[p][k]) for p in pa) for k in keys}, finite
+
+
+def _free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_nvsr(work):
+    """The full-width NVSR testee through SSR_Eval_Helper on the card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
+    from ssr_eval_tpu_torch.harness.fixtures import speechlike
+    from ssr_eval_tpu_torch.io.audio import write_wav
+    from ssr_eval_tpu_torch.models.nvsr import get_n_params
+    from ssr_eval_tpu_torch.utils.bucket import bucket_length
+    from ssr_eval_tpu_torch.utils.profiling import StageTimers
+
+    root = os.path.join(work, "sweep_data")
+    n_batches = -(-N_UTTS // NVSR_BATCH)
+    t = time.perf_counter()
+    testee = _nvsr_testee("NVSRTestee")
+    n_unet = get_n_params(testee.model.generator)
+    n_all = get_n_params(testee.model)
+    log(f"[nvsr] NVSRTestee('unet') built on the card in {time.perf_counter() - t:.2f} s: "
+        f"generator {n_unet} parameters, vocoder {n_all - n_unet}, total {n_all}")
+    if not 5.5e7 < n_unet < 7.5e7:
+        raise AssertionError(f"the UNet holds {n_unet} parameters, expected 5.5e7-7.5e7")
+
+    helper = _nvsr_helper(testee, root, NVSR_CUTOFFS, NVSR_BATCH)
+    t = time.perf_counter()
+    helper.evaluate(verbose=False)  # warm: allocator, cuDNN plans, constants
+    warm_s = time.perf_counter() - t
+    helper.engine.stats = StageTimers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        if i == 0:
+            stft_magnitude_kernel.launches = 0
+        t = time.perf_counter()
+        res = helper.evaluate(verbose=False)
+        times.append(time.perf_counter() - t)
+        if i == 0:
+            card, launches = res, stft_magnitude_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = n_batches * (1 + 2 * len(NVSR_CUTOFFS))
+    if launches != want:
+        raise AssertionError(f"|STFT| kernel launched {launches} times in the NVSR sweep, expected {want}")
+    pairs = _pairs(card)
+    if len(pairs) != N_UTTS * len(NVSR_CUTOFFS) or not all(
+        math.isfinite(m[k]) for m in pairs.values() for k in METRICS
+    ):
+        raise AssertionError("the NVSR sweep did not score every (file, spec) pair with finite metrics")
+
+    # model FLOPs of one spec's infer_batch at the main path's shapes
+    lmax = int(UTT_SECONDS * SR)
+    xb = torch.zeros(NVSR_BATCH, bucket_length(lmax), device=testee.device)
+    nb = torch.full((NVSR_BATCH,), lmax, device=testee.device)
+    with FlopCounterMode(display=False) as fc:
+        testee.infer_batch(xb, nb)
+    flops_batch = fc.get_total_flops() * len(NVSR_CUTOFFS)
+    best = min(times)
+    log(
+        f"[nvsr] {N_UTTS} utts x {len(NVSR_CUTOFFS)} cutoffs, batch {NVSR_BATCH}: warm-up {warm_s:.3f} s; "
+        f"timed runs {[round(x, 4) for x in times]} s; best {best / n_batches:.4f} s/batch, {N_UTTS / best:.2f} utt/s; "
+        f"kernel launches {launches} (1 + 2 x {len(NVSR_CUTOFFS)} per batch); "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB"
+    )
+    log(f"[nvsr] model FLOP per batch (FlopCounterMode over one spec's infer_batch at [{NVSR_BATCH}, "
+        f"{xb.shape[1]}], x {len(NVSR_CUTOFFS)} specs): {flops_batch:.4e}; at the best batch time "
+        f"{flops_batch / (best / n_batches) / 1e12:.2f} TFLOP/s; fp32 peak bound "
+        f"{flops_batch / FP32_FLOP_PER_S:.4f} s/batch")
+    log("[nvsr] stages over the 2 timed runs:", json.dumps(helper.engine.stats.summary()))
+    profile_sweep(helper, tag="nvsr-profile")
+    log("[nvsr] averaged:", json.dumps(card["averaged"]))
+
+    # the post-processing testee on the first utterances
+    pp = _nvsr_testee("NVSRPostProcTestee")
+    pp_helper = _nvsr_helper(pp, root, NVSR_CUTOFFS, NVSR_POSTPROC_UTTS, name="chip_nvsr_pp")
+    stft_magnitude_kernel.launches = 0
+    pp_res = pp_helper.evaluate(limit_test_nums=NVSR_POSTPROC_UTTS, verbose=False)
+    pp_launches = stft_magnitude_kernel.launches
+    pp_want = 1 + 3 * len(NVSR_CUTOFFS)
+    log(f"[nvsr] NVSRPostProcTestee on {NVSR_POSTPROC_UTTS} utterances: kernel launches {pp_launches} "
+        f"(expected {pp_want}); averaged {json.dumps(pp_res['averaged'])}")
+    if pp_launches != pp_want or len(_pairs(pp_res)) != NVSR_POSTPROC_UTTS * len(NVSR_CUTOFFS):
+        raise AssertionError(f"NVSRPostProcTestee: {pp_launches} launches (expected {pp_want})")
+    del pp, pp_helper
+    _free_card()
+
+    # card vs CPU, the same seeded weights, two short utterances
+    short = os.path.join(work, "nvsr_short")
+    os.makedirs(os.path.join(short, "p000"))
+    for i in range(2):
+        write_wav(os.path.join(short, "p000", f"s{i}.wav"), speechlike(NVSR_SHORT_SECONDS, SR, seed=2000 + i), SR)
+    card_short = _nvsr_helper(testee, short, NVSR_CUTOFFS, 2, name="chip_nvsr_short").evaluate(verbose=False)
+    cpu_testee = _nvsr_testee("NVSRTestee", device="cpu")
+    t = time.perf_counter()
+    cpu_short = _nvsr_helper(cpu_testee, short, NVSR_CUTOFFS, 2, device="cpu",
+                             name="chip_nvsr_short_cpu").evaluate(verbose=False)
+    cpu_s = time.perf_counter() - t
+    delta, finite = _max_pair_delta(card_short, cpu_short)
+    x = np.zeros((2, bucket_length(int(NVSR_SHORT_SECONDS * SR))), np.float32)
+    for i in range(2):
+        x[i, : int(NVSR_SHORT_SECONDS * SR)] = speechlike(NVSR_SHORT_SECONDS, SR, seed=2000 + i)
+    n = torch.full((2,), int(NVSR_SHORT_SECONDS * SR))
+    y_card, _ = testee.infer_batch(torch.from_numpy(x).to(testee.device), n.to(testee.device))
+    y_cpu, _ = cpu_testee.infer_batch(torch.from_numpy(x), n)
+    delta["wave"] = ((y_card.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    log(f"[nvsr] card vs CPU, 2 x {NVSR_SHORT_SECONDS} s x {len(NVSR_CUTOFFS)} cutoffs (CPU run {cpu_s:.2f} s): "
+        f"max |card - CPU| per pair and max |dwave| / max |wave|: {json.dumps(delta)}")
+    if not finite or any(delta[k] > NVSR_CARD_VS_CPU[k] for k in delta):
+        raise AssertionError(f"NVSR card vs CPU failed: {delta} (limits {NVSR_CARD_VS_CPU}, finite={finite})")
+    del cpu_testee
+    _free_card()
+
+    phase_nvsr_trained(short)
+
+    # bf16 against this fp32 run on the sweep data
+    bf = _nvsr_testee("NVSRTestee", dtype=torch.bfloat16)
+    bf_helper = _nvsr_helper(bf, root, NVSR_CUTOFFS, NVSR_BATCH, name="chip_nvsr_bf16")
+    t = time.perf_counter()
+    bf_helper.evaluate(verbose=False)
+    bf_warm = time.perf_counter() - t
+    t = time.perf_counter()
+    bf_res = bf_helper.evaluate(verbose=False)
+    bf_s = time.perf_counter() - t
+    d_bf, finite = _max_pair_delta(bf_res, card)
+    log(f"[nvsr] bf16: warm-up {bf_warm:.3f} s, timed {bf_s:.4f} s ({bf_s / n_batches:.4f} s/batch, "
+        f"{N_UTTS / bf_s:.2f} utt/s) vs fp32 best {best / n_batches:.4f} s/batch; "
+        f"max |bf16 - fp32| per pair: {json.dumps(d_bf)}")
+    if not finite or d_bf["lsd"] > NVSR_BF16_LSD or any(d_bf[k] > NVSR_BF16[k] for k in d_bf):
+        raise AssertionError(f"bf16 off fp32 by {d_bf} (limits {NVSR_BF16}, LSD {NVSR_BF16_LSD}; finite={finite})")
+    del bf, bf_helper, testee, helper
+    _free_card()
+    return launches
+
+
+def phase_nvsr_trained(root):
+    """examples/trained_small on the card: the .npz generator and the .pt
+    vocoder load, the vocoder passes its sanity check, and the
+    NVSRPostProcTestee sweep beats the identity testee at every cutoff."""
+    import ssr_eval_tpu_torch
+    from ssr_eval_tpu_torch.models.testees import NVSRPostProcTestee
+    from ssr_eval_tpu_torch.models.vocoder_check import synthesis_report
+
+    art = os.path.join(ROOT, "examples", "trained_small")
+    t = NVSRPostProcTestee(model_name="dnn", device="cuda")
+    t.load_generator_checkpoint(os.path.join(art, "generator_dnn.npz"))
+    unmatched = t.load_vocoder_checkpoint(os.path.join(art, "vocoder_small_trained.pt"), check=True)
+    rep = synthesis_report(t.model)
+    got = _nvsr_helper(t, root, TRAINED_CUTOFFS, 2, name="chip_trained").evaluate(verbose=False)
+    ident = _nvsr_helper(ssr_eval_tpu_torch.BatchedTestee(), root, TRAINED_CUTOFFS, 2,
+                         name="chip_identity").evaluate(verbose=False)
+    lsd = {k: (got["averaged"][k]["lsd"], ident["averaged"][k]["lsd"]) for k in ident["averaged"]}
+    log(f"[nvsr] trained_small on the card: unmatched {unmatched}, vocoder check {json.dumps(rep)}; "
+        f"LSD (trained, identity) per cutoff {json.dumps(lsd)}")
+    if unmatched or rep["corr"] <= 0.5 or len(lsd) != len(TRAINED_CUTOFFS) or not all(a < b for a, b in lsd.values()):
+        raise AssertionError(f"trained_small on the card failed: {lsd}, {rep}, unmatched {unmatched}")
+
+
 def main():
     import torch
 
@@ -681,6 +905,7 @@ def main():
             phase_invariance(work)
             launches["matrix"] = phase_matrix(work)
             launches["families"] = phase_families(work)
+            launches["nvsr"] = phase_nvsr(work)
         finally:
             os.chdir(cwd)
     log(f"[env] all phases {time.perf_counter() - t0:.1f} s")
@@ -690,7 +915,7 @@ def main():
         "route": "cuda",
         "source": "ssr_eval_tpu_torch/csrc/stft_magnitude.cu",
         "replaces": "ssr_eval_tpu/dsp/pallas_stft.py:123",
-        "launches": launches["matrix"],
+        "launches": launches["nvsr"],
         "launches_by_path": launches,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "max_rel_err": max(s["max_rel_err"] for s in shapes),

@@ -145,13 +145,20 @@ def stft_real_imag(x: torch.Tensor, length: torch.Tensor, cfg: StftConfig, max_f
 
 
 def stft_magnitude(
-    x: torch.Tensor, length: torch.Tensor, cfg: StftConfig, max_frames: int
+    x: torch.Tensor, length: torch.Tensor, cfg: StftConfig, max_frames: int, eps: float = 0.0
 ) -> torch.Tensor:
     """|STFT| [B, max_frames, n_bins] through the |STFT| kernel (the CUDA
-    kernel for a card tensor, its plain version for a CPU tensor)."""
+    kernel for a card tensor, its plain version for a CPU tensor).
+
+    A nonzero `eps` floors the power: sqrt(max(|X|^2, eps)), the clamp of
+    FDomainHelper.spectrogram (reference dsp.py:72-74) as the JAX package's
+    kernel route applies it to the magnitudes."""
     ext = _framing_source(x, length, cfg, max_frames)
     win = window_tensor(cfg.n_fft, cfg.win, x.device)
-    return stft_magnitude_kernel(ext, cfg.n_fft, cfg.hop, max_frames, win)
+    mag = stft_magnitude_kernel(ext, cfg.n_fft, cfg.hop, max_frames, win)
+    if eps:
+        mag = torch.sqrt(torch.clamp(mag * mag, min=eps))
+    return mag
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

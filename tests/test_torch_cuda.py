@@ -10,7 +10,10 @@ against a float64 rfft (float32 FFTs round at ~2e-7); the IIR degraders on
 the card within 1e-5 of max|ref| of their CPU run and 1e-4 of scipy's
 float64 sosfiltfilt; a sweep on the card within LSD 2.5e-4, log-SiSpec
 2e-3, SiSpec 5e-5 dB and SSIM 1e-6 of the same sweep on the CPU
-(chip_smoke.py's limits).
+(chip_smoke.py's limits); the |STFT| eps floor on the card within 1e-5 of
+max of the CPU's with silent frames at exactly sqrt(eps); a small-width
+NVSR testee's waveform on the card within 1e-4 of max|CPU| (cuDNN's fp32
+convolutions against the CPU's, TF32 off).
 """
 
 import os
@@ -50,6 +53,8 @@ def card():
         (1, 1, 4), (2, 1, 4), (2047, 400, 4), (2049, 400, 4), (2732, 500, 4), (4095, 1000, 4),
         # 3 x 37 frames: a ragged last block wherever a block holds >= 2 frames
         (2048, 441, 3), (743, 160, 3), (17, 5, 3),
+        # the NVSR post-processing cutoff detection (librosa's 2048/512)
+        (2048, 512, 4),
     ],
 )
 def test_cuda_kernel_matches_plain(card, n_fft, hop, rows):
@@ -187,3 +192,71 @@ def test_mixed_family_sweep_on_card_matches_cpu(card, tmp_path, monkeypatch):
             for k, tol in CARD_VS_CPU.items():
                 a, b = got[p][s.key][k], cpu[p][s.key][k]
                 assert np.isfinite(a) and abs(a - b) <= tol, (p, s.key, k, a, b)
+
+
+def _nvsr_buffers():
+    from ssr_eval_tpu_torch.harness.fixtures import speechlike as sl
+
+    a = sl(0.3, 44100, seed=3)
+    a[4000:9000] = 0.0
+    b = 0.5 * sl(0.2, 44100, seed=4)
+    x = np.zeros((2, 16384), np.float32)
+    x[0, : len(a)] = a
+    x[1, : len(b)] = b
+    return torch.from_numpy(x), torch.tensor([len(a), len(b)])
+
+
+@pytest.mark.cuda
+def test_stft_eps_on_card_matches_cpu(card):
+    from ssr_eval_tpu_torch.dsp.spectral import stft_magnitude
+    from ssr_eval_tpu_torch.models.nvsr import NVSR_STFT
+
+    x, n = _nvsr_buffers()
+    mf = NVSR_STFT.max_frames(x.shape[1])
+    before = stft_magnitude_kernel.launches
+    got = stft_magnitude(x.to(card), n.to(card), NVSR_STFT, mf, eps=1e-8).cpu()
+    assert stft_magnitude_kernel.launches == before + 1
+    want = stft_magnitude(x, n, NVSR_STFT, mf, eps=1e-8)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert float(got.min()) == pytest.approx(1e-4, rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["NVSRTestee", "NVSRPostProcTestee"])
+def test_small_nvsr_on_card_matches_cpu(card, cls):
+    from ssr_eval_tpu_torch.models import nvsr, testees
+    from ssr_eval_tpu_torch.models.unet import UNetRes
+    from ssr_eval_tpu_torch.models.vocoder import TFGANConfig
+
+    def small_testee(device):
+        # the UNet generator at widths (8, 16), 2 blocks per group, and the
+        # trained_small-width vocoder, installed into a default testee
+        base = nvsr.NVSR("dnn", vocoder_cfg=TFGANConfig(channels=96, res_dilations=(1, 3)))
+        with torch.device("meta"):
+            base.generator = nvsr.Generator("unet")
+        base.generator.analysis_module = UNetRes(channels=1, widths=(8, 16), blocks_per_group=2)
+        t = getattr(testees, cls)(model_name="dnn", device=device)
+        t._set_base(nvsr.init_weights(base, seed=7))
+        return t
+
+    x, n = _nvsr_buffers()
+    t_card = small_testee("cuda")
+    before = stft_magnitude_kernel.launches
+    y, ny = t_card.infer_batch(x.to(card), n.to(card), t_card.device_state())
+    torch.cuda.synchronize()
+    assert stft_magnitude_kernel.launches == before + (1 if cls == "NVSRTestee" else 2)
+    want, _ = small_testee("cpu").infer_batch(x, n)
+    assert torch.equal(ny.cpu(), n)
+    assert ((y.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_nvsr_infer_batch_leaves_no_graph_on_card(card):
+    from ssr_eval_tpu_torch.models import testees
+
+    t = testees.NVSRTestee(model_name="dnn", device="cuda")
+    x, n = _nvsr_buffers()
+    torch.cuda.reset_peak_memory_stats()
+    y, _ = t.infer_batch(x.to(card), n.to(card))
+    assert y.grad_fn is None and not y.requires_grad and torch.is_inference(y)
+    assert all(p.requires_grad for p in t.model.parameters())

@@ -21,7 +21,7 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ssr_eval_tpu)(\.|\
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, ssr_eval_tpu_torch, ssr_eval_tpu_torch.test\n"
+        "import sys, ssr_eval_tpu_torch, ssr_eval_tpu_torch.test, ssr_eval_tpu_torch.models.testees\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ssr_eval_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -41,11 +41,14 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert hit is None, (path, hit and hit.group(0))
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "engine", "helper", "test"])
+@pytest.mark.parametrize("entry", ["resolve_device", "engine", "helper", "test", "nvsr_testee"])
 def test_entry_points_need_a_card_unless_cpu_is_asked(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
+    from ssr_eval_tpu_torch.models.testees import NVSRTestee
+
     calls = {
+        "nvsr_testee": lambda: NVSRTestee(model_name="dnn"),
         "resolve_device": lambda: resolve_device(),
         "engine": lambda: EvalEngine([], 44100, 44100, 44100, BatchedTestee()),
         "helper": lambda: ssr_eval_tpu_torch.SSR_Eval_Helper(
