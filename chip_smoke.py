@@ -54,6 +54,21 @@ Phases (any failure raises and the script exits non-zero):
              identity testee's LSD at every cutoff); bf16 vs fp32 per pair
              within NVSR_BF16 (and LSD within the JAX package's 0.5), both
              timed.
+  train      NVSR training.  (a) the |STFT| backward kernel at BWD_SHAPES
+             against its plain version (torch autograd) and a float64 CPU
+             autograd (BWD_TOL), timed with the backward of
+             torch.stft(...).abs() beside it.  (b) the full-width
+             NVSRTrainer("unet") in examples/train_nvsr.py's configuration:
+             fit steps (2 |STFT| launches each, the mel pairs), the
+             checkpoint reloaded into NVSRTestee("unet") and run, then 10
+             steps on one batch (every loss finite, the last below the
+             first), s/step, FLOP/step, peak memory and a profile.  (c)
+             VocoderTrainer(SMALL_TFGAN) in scripts/train_small_nvsr.py's
+             configuration: the loss falls, 2 forward and 1 backward
+             launch per step, probe_corr, the export reloaded with
+             load_vocoder_checkpoint(check=False); the full-width vocoder
+             timed.  (d) one step's gradients on the card vs the CPU for the
+             small UNet generator and the small vocoder (TRAIN_CARD_VS_CPU).
 
 Output: per-phase lines, then the card's name and power limit, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
@@ -123,6 +138,7 @@ FLOOR_TOL = {"lsd": 0.6, "log_sispec": 0.5}
 # weights (the pretrained checkpoint is not in the repository).
 NVSR_CUTOFFS = [1000, 2000, 4000, 6000, 8000, 12000]
 NVSR_SEED = 234
+UNET_PARAMS = (5.5e7, 7.5e7)  # the full-width UNet's parameter count
 NVSR_BATCH = 16
 NVSR_POSTPROC_UTTS = 4
 NVSR_SHORT_SECONDS = 1.5  # the card-vs-CPU and trained_small utterances
@@ -138,6 +154,32 @@ NVSR_BF16_LSD = 0.5  # per pair, tests/test_models.py::test_bf16_inference_mode
 # JAX package's 0.5 alone would pass a bf16 path that was badly wrong.
 NVSR_BF16 = {"lsd": 2e-3, "log_sispec": 0.6, "sispec": 0.1, "ssim": 2e-4}
 TRAINED_CUTOFFS = [2000, 4000, 6000]  # doubled by the helper: tests/test_trained_small.py:38
+# The train phase.  The |STFT| backward kernel's shapes: the vocoder loss's
+# [4, 36 frames] (0.35 s crops: 35 conditioning frames -> 15,435 synthesized
+# samples -> 36), [16, 604 frames] and 512/128.  Gate: 1e-5 of max|grad| of a
+# float64 CPU autograd (float32 FFTs round at ~1e-6 of max).
+BWD_SHAPES = [(4, 36, 2048, 441), (16, 604, 2048, 441), (16, 257, 512, 128)]
+BWD_TOL = 1e-5
+# The generator in examples/train_nvsr.py's configuration: 16 speech-like
+# 2 s clips, batch 8, 1 s crops, lr 1e-4, cutoffs 2-12 kHz; a few fit steps,
+# then steps on one fixed batch.
+GEN_AUDIOS, GEN_BATCH, GEN_CROP, GEN_LR = 16, 8, 1.0, 1e-4
+GEN_CUTOFFS = (2000, 4000, 8000, 12000)
+GEN_FIT_STEPS, GEN_FIXED_STEPS = 3, 10
+# The vocoder in scripts/train_small_nvsr.py's configuration (SMALL_TFGAN,
+# batch 4, 0.35 s crops, lr 2e-4) for a fixed step count, and the
+# full-width TFGANConfig() timed for a few steps.
+VOC_BATCH, VOC_CROP, VOC_LR, VOC_STEPS = 4, 0.35, 2e-4, 60
+VOC_FULL_STEPS, VOC_FULL_CHANNELS = 3, 512
+# Card vs CPU, one step's gradients of the small UNet generator and the
+# small vocoder, per leaf: max|card - CPU| over max(max|CPU leaf|, 1e-4 x
+# the largest CPU gradient of the model; a bias a BatchNorm removes has a
+# true gradient of 0 and both devices return rounding noise).  cuDNN's
+# weight-gradient algorithms may sum with atomics in a varying order, and
+# fp32 runs without TF32.  About 5x the first measurement on an H100
+# (generator 2.77e-4, at the UNet's BatchNorm on the 1-channel input, whose
+# gradient cancels; vocoder 3.9e-6; PERF.md).
+TRAIN_CARD_VS_CPU = {"generator": 1.5e-3, "vocoder": 2e-5}
 
 
 def log(*a):
@@ -389,9 +431,16 @@ def phase_sweep(work):
 
 
 def profile_sweep(helper, tag="profile"):
-    """One more warm sweep under torch.profiler: device busy time (the union
-    of kernel and copy intervals), the wall time, the idle share, and the
-    device time by kernel name."""
+    """One more warm sweep under torch.profiler (see profile_call)."""
+    return profile_call(lambda: helper.evaluate(verbose=False), tag)
+
+
+def profile_call(fn, tag, keep="stft_fft_kernel"):
+    """fn() under torch.profiler: device busy time (the union of kernel and
+    copy intervals), the wall time, the idle share, and the device time by
+    kernel name (the top 12, and every kernel whose name holds `keep`).
+    Returns the device busy ms, or None when the profiler saw no device
+    event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -399,7 +448,7 @@ def profile_sweep(helper, tag="profile"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        helper.evaluate(verbose=False)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     spans = sorted(
@@ -409,7 +458,7 @@ def profile_sweep(helper, tag="profile"):
     )
     if not spans:
         log(f"[{tag}] wall {wall_ms:.1f} ms; device time not measured (the profiler saw no CUDA events)")
-        return
+        return None
     busy, cur_s, cur_e = 0.0, None, None
     for s0, e0, _ in spans:
         if cur_e is None or s0 > cur_e:
@@ -423,12 +472,13 @@ def profile_sweep(helper, tag="profile"):
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + (e0 - s0) / 1e3, n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    # the top 12 by device time, and the |STFT| kernel wherever it ranks
-    top = ranked[:12] + [kv for kv in ranked[12:] if "stft_fft_kernel" in kv[0]]
+    # the top 12 by device time, and the |STFT| kernels wherever they rank
+    top = ranked[:12] + [kv for kv in ranked[12:] if keep in kv[0]]
     log(f"[{tag}] wall {wall_ms:.1f} ms (under the profiler), device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall_ms:.3f}, {len(spans)} device events")
     for name, (ms, n) in top:
         log(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+    return busy
 
 
 def phase_smoke(work):
@@ -745,8 +795,8 @@ def phase_nvsr(work):
     n_all = get_n_params(testee.model)
     log(f"[nvsr] NVSRTestee('unet') built on the card in {time.perf_counter() - t:.2f} s: "
         f"generator {n_unet} parameters, vocoder {n_all - n_unet}, total {n_all}")
-    if not 5.5e7 < n_unet < 7.5e7:
-        raise AssertionError(f"the UNet holds {n_unet} parameters, expected 5.5e7-7.5e7")
+    if not UNET_PARAMS[0] < n_unet < UNET_PARAMS[1]:
+        raise AssertionError(f"the UNet holds {n_unet} parameters, expected {UNET_PARAMS}")
 
     helper = _nvsr_helper(testee, root, NVSR_CUTOFFS, NVSR_BATCH)
     t = time.perf_counter()
@@ -881,6 +931,260 @@ def phase_nvsr_trained(root):
         raise AssertionError(f"trained_small on the card failed: {lsd}, {rep}, unmatched {unmatched}")
 
 
+def bwd_bound(B, ext_len, mf, n_fft):
+    """Least time for the |STFT| backward call on this card: bytes (ext and
+    the upstream gradient read once, the gradient of ext written once) vs
+    two FFT-class transforms per frame (2 x 2.5 N log2 N) and ~10
+    operations per bin for H = g X / |X|."""
+    n_bins = n_fft // 2 + 1
+    nbytes = 4 * (2 * B * ext_len + B * mf * n_bins + n_fft)
+    flops = B * mf * (2 * 2.5 * n_fft * math.log2(n_fft) + 10 * n_bins)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def phase_backward_kernel():
+    """The |STFT| backward kernel against its plain version (torch autograd
+    on the card) and a float64 CPU autograd; kernel, plain and the backward
+    of torch.stft(...).abs() (a yardstick the port never calls) timed on
+    the same saved graphs."""
+    import torch
+
+    from ssr_eval_tpu_torch.device import resolve_device
+    from ssr_eval_tpu_torch.dsp.spectral import window_tensor
+    from ssr_eval_tpu_torch.dsp.stft_kernel import (
+        stft_magnitude_backward_kernel,
+        stft_magnitude_backward_plain,
+        stft_magnitude_plain,
+    )
+
+    dev = resolve_device()
+    g = torch.Generator(device=dev).manual_seed(1)
+    shapes = []
+    for B, mf, n_fft, hop in BWD_SHAPES:
+        ext_len = (mf - 1) * hop + n_fft
+        ext = 0.1 * torch.randn(B, ext_len, generator=g, device=dev)
+        gm = torch.randn(B, mf, n_fft // 2 + 1, generator=g, device=dev)
+        win = window_tensor(n_fft, n_fft, dev)
+        got = stft_magnitude_backward_kernel(ext, gm, n_fft, hop, mf, win)
+        torch.cuda.synchronize()
+        want = stft_magnitude_backward_plain(ext, gm, n_fft, hop, mf, win)
+        ref = stft_magnitude_backward_plain(ext.cpu().double(), gm.cpu().double(), n_fft, hop, mf, win.cpu().double())
+        peak = ref.abs().max().item()
+        max_abs = (got - want).abs().max().item()
+        rel = max_abs / want.abs().max().item()
+        rel64 = (got.cpu().double() - ref).abs().max().item() / peak
+        plain_rel64 = (want.cpu().double() - ref).abs().max().item() / peak
+        del ref
+        if got.shape != ext.shape or not rel <= BWD_TOL or not rel64 <= BWD_TOL:
+            raise AssertionError(
+                f"stft backward kernel [{B}, {mf}] {n_fft}/{hop}: vs plain {rel:.3e}, vs float64 {rel64:.3e} "
+                f"(limit {BWD_TOL})"
+            )
+        e = ext.clone().requires_grad_(True)
+        m_plain = stft_magnitude_plain(e, n_fft, hop, mf, win)
+        m_lib = torch.stft(e, n_fft, hop, window=win, center=False, return_complex=True).abs()
+        g_lib = gm.transpose(1, 2)
+        ms = cuda_ms(lambda: stft_magnitude_backward_kernel(ext, gm, n_fft, hop, mf, win))
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(m_plain, e, gm, retain_graph=True))
+        library_ms = cuda_ms(lambda: torch.autograd.grad(m_lib, e, g_lib, retain_graph=True))
+        del m_plain, m_lib
+        bound_ms, bound_by, nbytes, flops = bwd_bound(B, ext_len, mf, n_fft)
+        s = dict(
+            n_fft=n_fft, hop=hop, shape=[B, mf, n_fft // 2 + 1], ext_len=ext_len,
+            max_abs_err=max_abs, max_rel_err=rel, max_rel_err_f64=rel64, plain_max_rel_err_f64=plain_rel64,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, flops=flops,
+        )
+        log("[train-kernel]", json.dumps(s))
+        shapes.append(s)
+    return shapes
+
+
+def _grad_delta(model_cpu, model_card, loss_cpu, loss_card):
+    """One backward on each device -> (max over leaves of max|card - CPU|
+    over the leaf's scale (see TRAIN_CARD_VS_CPU), the worst leaf)."""
+    loss_cpu.backward()
+    loss_card.backward()
+    cpu = dict(model_cpu.named_parameters())
+    floor = 1e-4 * max(p.grad.abs().max().item() for p in cpu.values())
+    worst, name = 0.0, None
+    for k, p in model_card.named_parameters():
+        ref = cpu[k].grad
+        d = (p.grad.cpu() - ref).abs().max().item() / max(ref.abs().max().item(), floor)
+        if not math.isfinite(d) or d > worst:
+            worst, name = (d if math.isfinite(d) else math.inf), k
+    return worst, name
+
+
+def phase_train(work):
+    """NVSR training on the card: the backward kernel's checks, the
+    full-width generator, the vocoder, and card-vs-CPU gradients."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ssr_eval_tpu_torch.device import resolve_device
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_backward_kernel, stft_magnitude_kernel
+    from ssr_eval_tpu_torch.harness.fixtures import speechlike
+    from ssr_eval_tpu_torch.models import nvsr
+    from ssr_eval_tpu_torch.models.data import MelPairPipeline
+    from ssr_eval_tpu_torch.models.testees import NVSRTestee
+    from ssr_eval_tpu_torch.models.train import NVSRTrainer
+    from ssr_eval_tpu_torch.models.train_vocoder import SMALL_TFGAN, VocoderTrainer, export_torch_state_dict
+    from ssr_eval_tpu_torch.models.unet import UNetRes
+    from ssr_eval_tpu_torch.models.vocoder import TFGANConfig
+    from ssr_eval_tpu_torch.models.vocoder_check import probe_signal, synthesis_report
+    from ssr_eval_tpu_torch.utils.bucket import bucket_length
+
+    dev = resolve_device()
+    bwd_shapes = phase_backward_kernel()
+    launches = {}
+
+    # (b) the full-width generator
+    audios = [speechlike(2.0, SR, seed=s) for s in range(GEN_AUDIOS)]
+    tr = NVSRTrainer(model_name="unet", learning_rate=GEN_LR)
+    n_gen = nvsr.get_n_params(tr.model.generator)
+    if not UNET_PARAMS[0] < n_gen < UNET_PARAMS[1]:
+        raise AssertionError(f"the UNet holds {n_gen} parameters, expected {UNET_PARAMS}")
+    ckpt = os.path.join(work, "nvsr_generator_ckpt")
+    stft_magnitude_kernel.launches = stft_magnitude_backward_kernel.launches = 0
+    t = time.perf_counter()
+    state, fit_losses = tr.fit(audios, steps=GEN_FIT_STEPS, batch=GEN_BATCH, crop_seconds=GEN_CROP,
+                               ckpt_path=ckpt, ckpt_every=GEN_FIT_STEPS, log_every=0, cutoffs=GEN_CUTOFFS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches["train_generator"] = stft_magnitude_kernel.launches
+    if stft_magnitude_kernel.launches != 2 * GEN_FIT_STEPS or stft_magnitude_backward_kernel.launches:
+        raise AssertionError(f"generator fit: {stft_magnitude_kernel.launches} |STFT| launches (expected "
+                             f"{2 * GEN_FIT_STEPS}), {stft_magnitude_backward_kernel.launches} backward (expected 0)")
+    # the checkpoint written at the last fit step reloads into the testee
+    testee = NVSRTestee(model_name="unet")
+    testee.load_generator_checkpoint(ckpt + ".npz")
+    live = state["model"].state_dict()
+    same = all(torch.equal(v, live[k]) for k, v in testee.model.generator.state_dict().items())
+    short = int(NVSR_SHORT_SECONDS * SR)
+    xb = np.zeros((2, bucket_length(short)), np.float32)
+    for i in range(2):
+        xb[i, :short] = speechlike(NVSR_SHORT_SECONDS, SR, seed=3000 + i)
+    y, _ = testee.infer_batch(torch.from_numpy(xb).to(dev), torch.full((2,), short, device=dev))
+    finite = bool(torch.isfinite(y).all()) and float(y.abs().max()) > 0
+    log(f"[train] NVSRTrainer('unet'): {n_gen} parameters; fit {GEN_FIT_STEPS} steps in {fit_s:.3f} s "
+        f"(batch {GEN_BATCH} x {GEN_CROP} s, includes the first step's cuDNN set-up), losses "
+        f"{[round(x, 5) for x in fit_losses]}; checkpoint reloads into NVSRTestee('unet') "
+        f"{'identical' if same else 'DIFFERENT'}, infer_batch finite {finite}")
+    if not same or not finite or not all(math.isfinite(x) for x in fit_losses):
+        raise AssertionError("generator fit or its checkpoint failed")
+    del testee, y
+    _free_card()
+
+    pipe = MelPairPipeline(crop_seconds=GEN_CROP, cutoffs=GEN_CUTOFFS)
+    mel_lr, mel_hr = pipe.make_pair(pipe.random_crops(audios, np.random.default_rng(123), GEN_BATCH), 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(GEN_FIXED_STEPS):
+        t = time.perf_counter()
+        state, loss = tr.step(state, mel_lr, mel_hr)
+        losses.append(float(loss))  # synchronises
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        tr.step(state, mel_lr, mel_hr)
+    flops = fc.get_total_flops()
+    busy = profile_call(lambda: [tr.step(state, mel_lr, mel_hr) for _ in range(2)], "train-profile", keep="stft_")
+    best, median = min(times), sorted(times)[len(times) // 2]
+    # the profiler slows the host; against the unprofiled median step
+    idle = None if busy is None else 1 - busy / 2e3 / median
+    log(f"[train] fixed batch [{GEN_BATCH}, {mel_lr.shape[1]}, {mel_lr.shape[2]}], {GEN_FIXED_STEPS} steps: losses "
+        f"{[round(x, 5) for x in losses]}; s/step {[round(x, 4) for x in times]} (best {best:.4f}, median "
+        f"{median:.4f}); FLOP/step (FlopCounterMode) {flops:.4e}, "
+        f"{flops / best / 1e12:.2f} TFLOP/s at the best step (fp32 peak bound {flops / FP32_FLOP_PER_S:.4f} s); "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; idle share against the unprofiled median step {idle}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the full-width generator's fixed-batch loss did not fall: {losses}")
+    del tr, state, pipe, mel_lr, mel_hr
+    _free_card()
+
+    # (c) the small vocoder, then the full-width one for a few steps
+    vt = VocoderTrainer(SMALL_TFGAN, learning_rate=VOC_LR)
+    stft_magnitude_kernel.launches = stft_magnitude_backward_kernel.launches = 0
+    t = time.perf_counter()
+    vstate, vlosses = vt.fit(audios, steps=VOC_STEPS, batch=VOC_BATCH, crop_seconds=VOC_CROP, log_every=0)
+    torch.cuda.synchronize()
+    voc_s = time.perf_counter() - t
+    launches["train_vocoder"] = stft_magnitude_kernel.launches
+    bwd_launches = stft_magnitude_backward_kernel.launches
+    corr = vt.probe_corr(vstate["model"], probe_signal(SR))
+    path = os.path.join(work, "vocoder_small.pt")
+    export_torch_state_dict(vstate["model"], SMALL_TFGAN, path)
+    reload = NVSRTestee(model_name="dnn")
+    unmatched = reload.load_vocoder_checkpoint(path, check=False)
+    rep = synthesis_report(reload.model)
+    head, tail = float(np.mean(vlosses[:5])), float(np.mean(vlosses[-5:]))
+    log(f"[train] VocoderTrainer(SMALL_TFGAN): {VOC_STEPS} steps (batch {VOC_BATCH} x {VOC_CROP} s) in {voc_s:.3f} s "
+        f"({voc_s / VOC_STEPS:.4f} s/step); loss mean of the first / last 5 steps {head:.5f} / {tail:.5f}; "
+        f"|STFT| launches {launches['train_vocoder']} (2 per step), backward {bwd_launches} (1 per step); "
+        f"probe_corr {corr:.4f}; exported and reloaded with load_vocoder_checkpoint(check=False): unmatched "
+        f"{unmatched}, synthesis_report {json.dumps(rep)}")
+    if (bwd_launches != VOC_STEPS or launches["train_vocoder"] != 2 * VOC_STEPS or not tail < head
+            or unmatched or not rep["finite"]):
+        raise AssertionError("vocoder training: the loss did not fall or the launch counts are off")
+    del vt, vstate, reload
+    _free_card()
+
+    vt = VocoderTrainer(TFGANConfig(channels=VOC_FULL_CHANNELS), learning_rate=VOC_LR)
+    vstate = vt.init_state(seed=1)
+    crops = np.stack([speechlike(VOC_CROP, SR, seed=4000 + i) for i in range(VOC_BATCH)]).astype(np.float32)
+    with torch.no_grad():
+        cond = vt.lin_mel(torch.from_numpy(crops).to(dev))
+    vt.step(vstate, cond, cond)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    full_times = []
+    for _ in range(VOC_FULL_STEPS):
+        t = time.perf_counter()
+        _, loss = vt.step(vstate, cond, cond)
+        float(loss)
+        full_times.append(time.perf_counter() - t)
+    log(f"[train] VocoderTrainer(TFGANConfig()) ({VOC_FULL_CHANNELS} channels, {nvsr.get_n_params(vt.model)} parameters), batch "
+        f"{VOC_BATCH} x {VOC_CROP} s: s/step {[round(x, 4) for x in full_times]}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del vt, vstate, cond
+    _free_card()
+
+    # (d) card vs CPU: one step's gradients
+    def small_gen(device):
+        with torch.device("meta"):
+            gen = nvsr.Generator("unet")
+        gen.analysis_module = UNetRes(channels=1, widths=(8, 16), blocks_per_group=2)
+        return nvsr.init_weights(gen, seed=11).to(device).train()
+
+    rng = np.random.default_rng(12)
+    lr_np = np.abs(rng.standard_normal((2, 24, 128))).astype(np.float32) + np.float32(1e-3)
+    hr_np = lr_np + np.float32(0.1) * np.abs(rng.standard_normal(lr_np.shape)).astype(np.float32)
+    g_cpu, g_card = small_gen("cpu"), small_gen(dev)
+    d_gen, k_gen = _grad_delta(
+        g_cpu, g_card, NVSRTrainer.loss(g_cpu, torch.from_numpy(lr_np), torch.from_numpy(hr_np)),
+        NVSRTrainer.loss(g_card, torch.from_numpy(lr_np).to(dev), torch.from_numpy(hr_np).to(dev)))
+    v_cpu = VocoderTrainer(SMALL_TFGAN, device="cpu")
+    v_card = VocoderTrainer(SMALL_TFGAN)
+    m_cpu, m_card = v_cpu.init_state(seed=13)["model"], v_card.init_state(seed=13)["model"]
+    crops = np.stack([speechlike(VOC_CROP, SR, seed=5000 + i) for i in range(2)]).astype(np.float32)
+    with torch.no_grad():
+        c_cpu = v_cpu.lin_mel(torch.from_numpy(crops))
+    before = stft_magnitude_backward_kernel.launches
+    c_card = c_cpu.to(dev)
+    d_voc, k_voc = _grad_delta(m_cpu, m_card, v_cpu.loss(m_cpu, c_cpu, c_cpu), v_card.loss(m_card, c_card, c_card))
+    log(f"[train] card vs CPU, one step's gradients (max over leaves of max|card - CPU| / leaf scale): small UNet "
+        f"generator {d_gen:.3e} ({k_gen}), SMALL_TFGAN vocoder {d_voc:.3e} ({k_voc}); limits {TRAIN_CARD_VS_CPU}")
+    if (not d_gen <= TRAIN_CARD_VS_CPU["generator"] or not d_voc <= TRAIN_CARD_VS_CPU["vocoder"]
+            or stft_magnitude_backward_kernel.launches != before + 1):
+        raise AssertionError(f"train card vs CPU failed: generator {d_gen} ({k_gen}), vocoder {d_voc} ({k_voc})")
+    launches["train_vocoder_backward"] = bwd_launches
+    return launches, bwd_shapes
+
+
 def main():
     import torch
 
@@ -906,9 +1210,12 @@ def main():
             launches["matrix"] = phase_matrix(work)
             launches["families"] = phase_families(work)
             launches["nvsr"] = phase_nvsr(work)
+            train_launches, bwd_shapes = phase_train(work)
         finally:
             os.chdir(cwd)
     log(f"[env] all phases {time.perf_counter() - t0:.1f} s")
+    launches["train_generator"] = train_launches["train_generator"]
+    launches["train_vocoder"] = train_launches["train_vocoder"]
     head = shapes[0]
     kernel = {
         "name": "stft_magnitude",
@@ -928,8 +1235,26 @@ def main():
         "library_ms": head["library_ms"],
         "shapes": shapes,
     }
+    bhead = bwd_shapes[0]  # the vocoder loss's shape
+    backward = {
+        "name": "stft_magnitude_backward",
+        "route": "cuda",
+        "source": "ssr_eval_tpu_torch/csrc/stft_magnitude.cu",
+        "replaces": "ssr_eval_tpu/dsp/pallas_stft.py:123",
+        "replaces_note": "the gradient of that kernel's function; the JAX package lets XLA differentiate its |STFT|",
+        "launches": train_launches["train_vocoder_backward"],
+        "max_abs_err": max(s["max_abs_err"] for s in bwd_shapes),
+        "max_rel_err": max(s["max_rel_err"] for s in bwd_shapes),
+        "max_rel_err_f64": max(s["max_rel_err_f64"] for s in bwd_shapes),
+        "ms": bhead["ms"],
+        "plain_ms": bhead["plain_ms"],
+        "bound_ms": bhead["bound_ms"],
+        "bound_by": bhead["bound_by"],
+        "library_ms": bhead["library_ms"],
+        "shapes": bwd_shapes,
+    }
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel, backward]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -52,6 +52,31 @@
 // frame is transformed by the same code in a fixed order with no atomics,
 // so a row's output does not depend on its batch.  No TF32, no tensor
 // cores.
+//
+// The backward (ssr_stft_magnitude_backward, split path only) has no TPU
+// counterpart: XLA differentiates the JAX package's |STFT|.  For one frame
+// with y = w * frame, X = rFFT(y), m = |X| and upstream gradient g:
+//   H[k] = g[k] X[k] / m[k]  (0 where m[k] = 0, torch's abs backward)
+//   d frame[n] = w[n] Re sum_{k<=N/2} H[k] e^{+2 pi i k n/N}
+// and d ext is the overlap-add of d frame at stride hop.  Two kernels:
+//   1. per frame, in shared memory: the forward's Stockham FFT recomputes Z
+//      (nothing of the forward is saved but ext); each thread turns a pair
+//      (Z[k], Z[P-k]) into (X[k], X[P-k]), then H, then the pair (C[k],
+//      C[P-k]) of the half-length inverse in place, with
+//        C[k] = (H[k] + conj H[P-k])/2 + i e^{+2 pi i k/N} (H[k] - conj H[P-k])/2,
+//        C[0] = (Re H[0] + Re H[P]) + i (Re H[0] - Re H[P]);
+//      then c = conj(FFT_P(conj C)) gives d frame[2m] = w Re c[m] and
+//      d frame[2m+1] = w Im c[m], written to a [B, max_frames, N] scratch.
+//   2. per ext sample j: the sum, in ascending frame order, of the <=
+//      ceil(N/hop) frames covering j.  No atomics: the order is fixed, so
+//      a row's gradient does not depend on its batch.
+// Bound: ext and g read once, d ext written once (at [16, 604 frames],
+// 2048/441: 74 MB, ~22 us at 3.35 TB/s) against 2 x 2.5 N log2 N per frame
+// (1.1 GFLOP, ~16 us at 67 TFLOP/s): bytes bound it.  As in the forward,
+// shared-memory round trips of the FFT passes set the pace in practice.
+// The scratch adds a write and a read of B x max_frames x N floats beyond
+// the bound (158 MB at that shape); fusing the overlap-add into kernel 1
+// needs a fixed-order reduction across blocks and is left for later.
 
 #include <cuda_runtime.h>
 
@@ -353,17 +378,142 @@ stft_fft_kernel(const float* __restrict__ ext, const float* __restrict__ win,
   }
 }
 
+// Backward, start of the inverse: conj(C[i]) from the buffer.
+struct LoadConjBuf {
+  const float2* buf;
+  __device__ __forceinline__ float2 operator()(int i) const {
+    const float2 v = buf[pad(i)];
+    return make_float2(v.x, -v.y);
+  }
+};
+
+// Backward, end of the inverse: F = FFT_P(conj C) = conj(c), so
+// d frame[2m] = w[2m] Re F[m] and d frame[2m+1] = -w[2m+1] Im F[m].
+struct StoreFrameGrad {
+  float2* __restrict__ d;
+  const float2* __restrict__ win;
+  bool valid;
+  __device__ __forceinline__ void operator()(int m, float2 v) const {
+    if (!valid) return;
+    const float2 w = __ldg(win + m);
+    d[m] = make_float2(w.x * v.x, -w.y * v.y);
+  }
+};
+
+// X[k] of the split from the half-length spectrum: zk = Z[k], zr = Z[P-k].
+__device__ __forceinline__ float2 split_bin(float2 zk, float2 zr, float2 a) {
+  const float2 zc = make_float2(zr.x, -zr.y);
+  const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
+  const float2 od = mul_neg_i(make_float2(0.5f * (zk.x - zc.x), 0.5f * (zk.y - zc.y)));
+  return cadd(e, cmul(a, od));
+}
+
+// H = g X / |X|, 0 where |X| = 0 (|X| rounded as the forward rounds it).
+__device__ __forceinline__ float2 mag_grad(float2 x, float g) {
+  const float m = sqrtf(x.x * x.x + x.y * x.y);
+  if (m == 0.f) return make_float2(0.f, 0.f);
+  return make_float2(g * (x.x / m), g * (x.y / m));
+}
+
+// Kernel 1 of the backward: per-frame gradients d frame [B * max_frames, N]
+// (see the head of the file).  Same grid, threads and shared memory as the
+// forward's split path; P = N/2 = 2^kLog2P.
+template <int kLog2P>
+__global__ void __launch_bounds__(block_threads<1 << kLog2P>(), min_blocks<1 << kLog2P, false>())
+stft_bwd_frames_kernel(const float* __restrict__ ext, const float* __restrict__ win,
+                       const float2* __restrict__ tw, const float2* __restrict__ table_a,
+                       const float* __restrict__ grad_mag, float* __restrict__ grad_frames,
+                       int ext_len, int n_fft, int hop, int max_frames, int n_frames) {
+  constexpr int P = 1 << kLog2P;
+  constexpr int T = frame_threads<P>();
+  constexpr int kFrames = T >= kBlockThreads ? 1 : kBlockThreads / T;
+  constexpr int kBufLen = P + ((P - 1) >> 4);
+  extern __shared__ float2 smem[];
+  const int t = threadIdx.x % T;
+  const int fl = threadIdx.x / T;
+  float2* buf = smem + fl * kBufLen;
+  const int g = blockIdx.x * kFrames + fl;
+  const bool valid = g < n_frames;
+  const int b = valid ? g / max_frames : 0;
+  const int f = valid ? g - b * max_frames : 0;
+  const float* x = ext + static_cast<size_t>(b) * ext_len + static_cast<size_t>(f) * hop;
+  const int n_bins = n_fft / 2 + 1;
+  const float* gm = grad_mag + static_cast<size_t>(valid ? g : 0) * n_bins;
+  float2* d = reinterpret_cast<float2*>(grad_frames + static_cast<size_t>(valid ? g : 0) * n_fft);
+
+  fft<P, false>(buf, tw, t, LoadPairs{x, win, valid}, StoreBuf{buf});
+  // Pairs (k, P - k), k <= P/2: each thread reads and writes only its own
+  // pair's two slots, so the in-place update needs no barrier inside.
+  for (int k = t; k <= P / 2; k += T) {
+    const int j = P - k;
+    const float2 zk = buf[pad(k)];
+    const float2 zj = buf[pad(j & (P - 1))];
+    const float2 ak = __ldg(table_a + k), aj = __ldg(table_a + j);
+    const float2 hk = mag_grad(split_bin(zk, zj, ak), __ldg(gm + k));
+    const float2 hj = mag_grad(split_bin(zj, zk, aj), __ldg(gm + j));
+    if (k == 0) {
+      buf[pad(0)] = make_float2(hk.x + hj.x, hk.x - hj.x);
+      continue;
+    }
+    // e^{+2 pi i k/N} = conj(table_a[k])
+    const float2 ek = make_float2(0.5f * (hk.x + hj.x), 0.5f * (hk.y - hj.y));
+    const float2 ok = cmul(make_float2(0.5f * (hk.x - hj.x), 0.5f * (hk.y + hj.y)), make_float2(ak.x, -ak.y));
+    buf[pad(k)] = make_float2(ek.x - ok.y, ek.y + ok.x);  // E + i O
+    if (j != k) {
+      const float2 ej = make_float2(ek.x, -ek.y);  // (H[j] + conj H[k])/2 = conj E[k]
+      const float2 oj =
+          cmul(make_float2(0.5f * (hj.x - hk.x), 0.5f * (hj.y + hk.y)), make_float2(aj.x, -aj.y));
+      buf[pad(j)] = make_float2(ej.x - oj.y, ej.y + oj.x);
+    }
+  }
+  __syncthreads();
+  fft<P, true>(buf, tw, t, LoadConjBuf{buf}, StoreFrameGrad{d, reinterpret_cast<const float2*>(win), valid});
+}
+
+// Kernel 2 of the backward: d ext[b, j] = sum over the frames f covering j,
+// in ascending order, of d frame[b, f, j - f hop].
+__global__ void __launch_bounds__(kBlockThreads)
+stft_bwd_ola_kernel(const float* __restrict__ grad_frames, float* __restrict__ grad_ext,
+                    long long total, int ext_len, int n_fft, int hop, int max_frames) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlockThreads + threadIdx.x;
+  if (i >= total) return;
+  const int b = static_cast<int>(i / ext_len);
+  const int j = static_cast<int>(i - static_cast<long long>(b) * ext_len);
+  const int f_lo = j >= n_fft ? (j - n_fft) / hop + 1 : 0;
+  const int f_hi = min(max_frames - 1, j / hop);
+  const float* src = grad_frames + static_cast<size_t>(b) * max_frames * n_fft + j;
+  float acc = 0.f;
+  for (int f = f_lo; f <= f_hi; ++f) acc += __ldg(src + static_cast<long long>(f) * (n_fft - hop));
+  grad_ext[i] = acc;
+}
+
 using KernelFn = void (*)(const float*, const float*, const float2*, const float2*, const float2*,
                           float*, int, int, int, int, int);
+using BwdFn = void (*)(const float*, const float*, const float2*, const float2*, const float*,
+                       float*, int, int, int, int, int);
 
 template <bool kBluestein, int... L>
 std::array<KernelFn, sizeof...(L)> kernel_table(std::integer_sequence<int, L...>) {
   return {{&stft_fft_kernel<kBluestein, L>...}};
 }
 
+template <int... L>
+std::array<BwdFn, sizeof...(L)> bwd_table(std::integer_sequence<int, L...>) {
+  return {{&stft_bwd_frames_kernel<L>...}};
+}
+
 // Split: P = N/2 <= 2048 (log2 P <= 11); Bluestein: M <= 8192 (log2 M <= 13).
 const auto kSplitKernels = kernel_table<false>(std::make_integer_sequence<int, 12>{});
 const auto kBluesteinKernels = kernel_table<true>(std::make_integer_sequence<int, 14>{});
+const auto kBwdKernels = bwd_table(std::make_integer_sequence<int, 12>{});
+
+// Frames per block and dynamic shared memory of a P-point frame kernel.
+void frame_launch_shape(int fft_len, int* frames_per_block, size_t* smem) {
+  const int T = fft_len >= 16 ? fft_len / 16 : 1;
+  *frames_per_block = T >= kBlockThreads ? 1 : kBlockThreads / T;
+  const int buf_len = fft_len + ((fft_len - 1) >> 4);
+  *smem = static_cast<size_t>(*frames_per_block) * buf_len * sizeof(float2);
+}
 
 }  // namespace
 
@@ -395,9 +545,9 @@ extern "C" int ssr_stft_magnitude(const float* ext, const float* win, const floa
   int log2P = 0;
   while ((1 << log2P) < fft_len) ++log2P;
   const int T = fft_len >= 16 ? fft_len / 16 : 1;
-  const int frames_per_block = T >= kBlockThreads ? 1 : kBlockThreads / T;
-  const int buf_len = fft_len + ((fft_len - 1) >> 4);
-  const size_t smem = static_cast<size_t>(frames_per_block) * buf_len * sizeof(float2);
+  int frames_per_block;
+  size_t smem;
+  frame_launch_shape(fft_len, &frames_per_block, &smem);
   const long long blocks = (n_frames + frames_per_block - 1) / frames_per_block;
   const KernelFn kernel = split ? kSplitKernels[log2P] : kBluesteinKernels[log2P];
   if (smem > 48 * 1024) {
@@ -410,5 +560,55 @@ extern "C" int ssr_stft_magnitude(const float* ext, const float* win, const floa
       ext, win, reinterpret_cast<const float2*>(twiddle),
       reinterpret_cast<const float2*>(table_a), reinterpret_cast<const float2*>(table_b), out,
       ext_len, n_fft, hop, max_frames, static_cast<int>(n_frames));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradient of sum(grad_mag * |STFT|) with respect to ext, for a
+// power-of-two N >= 2 (the split path; every other N returns
+// cudaErrorNotSupported).  ext, win, twiddle and table_a as for
+// ssr_stft_magnitude (fft_len = N/2); grad_mag [batch, max_frames, N/2 + 1]
+// f32; grad_frames: scratch of batch * max_frames * N f32; grad_ext [batch,
+// ext_len] f32, every sample written.  win must be 8-byte aligned.  Launches
+// both kernels on `stream` and returns cudaGetLastError().
+extern "C" int ssr_stft_magnitude_backward(const float* ext, const float* win, const float* twiddle,
+                                           const float* table_a, const float* grad_mag,
+                                           float* grad_frames, float* grad_ext, int batch,
+                                           int ext_len, int n_fft, int hop, int max_frames,
+                                           int fft_len, void* stream) {
+  if (batch <= 0 || n_fft <= 0 || n_fft > kMaxFft || hop <= 0 || max_frames <= 0 ||
+      static_cast<long long>(ext_len) < static_cast<long long>(max_frames - 1) * hop + n_fft) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_fft < 2 || (n_fft & (n_fft - 1)) != 0) return static_cast<int>(cudaErrorNotSupported);
+  if (fft_len != n_fft / 2 || twiddle == nullptr || table_a == nullptr ||
+      (reinterpret_cast<size_t>(win) & 7) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_frames = static_cast<long long>(batch) * max_frames;
+  if (n_frames > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int log2P = 0;
+  while ((1 << log2P) < fft_len) ++log2P;
+  const int T = fft_len >= 16 ? fft_len / 16 : 1;
+  int frames_per_block;
+  size_t smem;
+  frame_launch_shape(fft_len, &frames_per_block, &smem);
+  const long long blocks = (n_frames + frames_per_block - 1) / frames_per_block;
+  const BwdFn kernel = kBwdKernels[log2P];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<static_cast<unsigned>(blocks), T * frames_per_block, smem, s>>>(
+      ext, win, reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(table_a),
+      grad_mag, grad_frames, ext_len, n_fft, hop, max_frames, static_cast<int>(n_frames));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(batch) * ext_len;
+  const long long ola_blocks = (total + kBlockThreads - 1) / kBlockThreads;
+  if (ola_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  stft_bwd_ola_kernel<<<static_cast<unsigned>(ola_blocks), kBlockThreads, 0, s>>>(
+      grad_frames, grad_ext, total, ext_len, n_fft, hop, max_frames);
   return static_cast<int>(cudaGetLastError());
 }

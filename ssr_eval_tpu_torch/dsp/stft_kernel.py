@@ -1,5 +1,6 @@
-"""|STFT| of hop-strided frames: the hand-written CUDA kernel, its plain
-PyTorch version, the kernel's table plan and the launch count.
+"""|STFT| of hop-strided frames: the hand-written CUDA kernels (forward and
+backward), their plain PyTorch versions, the kernels' table plan and the
+launch counts.
 
 Counterpart of ``ssr_eval_tpu/dsp/pallas_stft.py::fused_ct_stft_magnitude``
 (the Pallas kernel ``_ct_kernel``).  The kernel (``csrc/stft_magnitude.cu``)
@@ -13,6 +14,10 @@ chirp-z convolution.  `_fft_plan` builds each path's tables.
 
 `stft_magnitude_kernel` launches the kernel for a CUDA tensor and takes
 the plain version for a CPU tensor; it never falls back from the card.
+A CUDA `ext` that requires a gradient goes through `StftMagnitudeFn`,
+whose backward is the backward kernel of the same source (power-of-two
+n_fft only; a Bluestein n_fft raises NotImplementedError).  The JAX
+package has no such kernel: XLA differentiates its |STFT|.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 MAX_N_FFT = 4096
 
@@ -146,9 +152,19 @@ def stft_magnitude_kernel(
     ext: [L] or [B, L] float32, contiguous; window: [n_fft] float32 on the
     same device.  Returns [..., max_frames, n_fft//2 + 1] float32.  On a
     CUDA tensor it launches the kernel on the current stream without
-    synchronising; on a CPU tensor it computes the plain version.
+    synchronising, through `StftMagnitudeFn` when grad is enabled and ext
+    requires it; on a CPU tensor it computes the plain version, which
+    autograd differentiates.
     """
     _check(ext, n_fft, hop, max_frames, window)
+    if ext.device.type == "cuda" and torch.is_grad_enabled() and ext.requires_grad:
+        return StftMagnitudeFn.apply(ext, n_fft, hop, max_frames, window)
+    return _forward(ext, n_fft, hop, max_frames, window)
+
+
+def _forward(ext, n_fft, hop, max_frames, window):
+    """The forward with no graph: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor (arguments checked by the caller)."""
     if ext.device.type == "cpu":
         return stft_magnitude_plain(ext, n_fft, hop, max_frames, window)
     if ext.device.type != "cuda":
@@ -172,3 +188,94 @@ def stft_magnitude_kernel(
 
 
 stft_magnitude_kernel.launches = 0
+
+
+def stft_magnitude_backward_plain(
+    ext: torch.Tensor, grad_mag: torch.Tensor, n_fft: int, hop: int, max_frames: int, window: torch.Tensor
+) -> torch.Tensor:
+    """d sum(grad_mag * |STFT|(ext)) / d ext by torch autograd through
+    `stft_magnitude_plain`: [..., L], ext's shape."""
+    with torch.enable_grad():
+        e = ext.detach().requires_grad_(True)
+        mag = stft_magnitude_plain(e, n_fft, hop, max_frames, window)
+        (grad,) = torch.autograd.grad(mag, e, grad_mag)
+    return grad
+
+
+@functools.lru_cache(maxsize=1)
+def _backward_launcher():
+    """The backward's C entry point (builds csrc/ on first use)."""
+    from ssr_eval_tpu_torch.dsp import _build
+
+    fn = _build.library("stft_magnitude").ssr_stft_magnitude_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stft_magnitude_backward_kernel(
+    ext: torch.Tensor, grad_mag: torch.Tensor, n_fft: int, hop: int, max_frames: int, window: torch.Tensor
+) -> torch.Tensor:
+    """The gradient of sum(grad_mag * |STFT|(ext)) with respect to ext.
+
+    ext and window as for `stft_magnitude_kernel`; grad_mag [..., max_frames,
+    n_fft//2 + 1] float32.  Returns ext's shape.  On a CUDA tensor it
+    launches the backward kernel (a power-of-two n_fft; any other raises
+    NotImplementedError); on a CPU tensor it computes the plain version.
+    """
+    _check(ext, n_fft, hop, max_frames, window)
+    n_bins = n_fft // 2 + 1
+    want = (*ext.shape[:-1], max_frames, n_bins)
+    if tuple(grad_mag.shape) != want or grad_mag.dtype != torch.float32 or grad_mag.device != ext.device:
+        raise ValueError(
+            f"grad_mag must be float32 {want} on {ext.device}, got {grad_mag.dtype} "
+            f"{tuple(grad_mag.shape)} on {grad_mag.device}"
+        )
+    if ext.device.type == "cpu":
+        return stft_magnitude_backward_plain(ext, grad_mag, n_fft, hop, max_frames, window)
+    if ext.device.type != "cuda":
+        raise ValueError(f"stft_magnitude_backward_kernel runs on cuda or cpu, not {ext.device}")
+    if _fft_plan(n_fft).kind != "split":
+        raise NotImplementedError(
+            f"the |STFT| backward kernel takes a power-of-two n_fft; {n_fft} goes through "
+            "Bluestein, whose backward is not written yet (ROADMAP.md)"
+        )
+    fn = _backward_launcher()
+    rows = ext.reshape(-1, ext.shape[-1])
+    gm = grad_mag.contiguous()
+    frames = torch.empty(rows.shape[0] * max_frames * n_fft, device=ext.device, dtype=torch.float32)
+    out = torch.empty_like(rows)
+    fft_len, tw, tab_a, _ = _tables(n_fft, ext.device)
+    with torch.cuda.device(ext.device):
+        stream = torch.cuda.current_stream(ext.device).cuda_stream
+        rc = fn(
+            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(), gm.data_ptr(),
+            frames.data_ptr(), out.data_ptr(),
+            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"stft_magnitude backward kernel launch failed: CUDA error {rc}")
+    stft_magnitude_backward_kernel.launches += 1
+    return out.reshape(ext.shape)
+
+
+stft_magnitude_backward_kernel.launches = 0
+
+
+class StftMagnitudeFn(torch.autograd.Function):
+    """|STFT| with a hand-written backward: the forward kernel, then the
+    backward kernel on the saved ext (the spectrum is recomputed, not
+    saved).  Only ext is differentiated; the window is a constant."""
+
+    @staticmethod
+    def forward(ctx, ext, n_fft, hop, max_frames, window):
+        ctx.save_for_backward(ext, window)
+        ctx.cfg = (n_fft, hop, max_frames)
+        return _forward(ext, n_fft, hop, max_frames, window)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_mag):
+        ext, window = ctx.saved_tensors
+        grad = stft_magnitude_backward_kernel(ext, grad_mag.contiguous(), *ctx.cfg, window)
+        return grad, None, None, None, None

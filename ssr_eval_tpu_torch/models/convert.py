@@ -16,6 +16,9 @@
                                               -> nn.GRU layer l (d = 1: `_reverse`),
                                                  b_hr = b_hz = 0
 
+- `flax_from_nvsr_state(state_dict)`: the exact inverse, the port's state
+  dict -> the JAX package's variables tree (what `NVSRTrainer` checkpoints;
+  b_hr = b_hz must be 0 and are dropped, num_batches_tracked is dropped).
 - A reference NVSR state dict (`generator.analysis_module.…`) needs no
   conversion: the port's UNet carries the reference's names and layouts,
   so it loads with `load_state_dict`.
@@ -23,7 +26,8 @@
   ConvTranspose1d in a Sequential) map onto `Vocoder` by
   `vocoder_state_from_voicefixer`, weight norm fused; the name map is
   derived from the config (`vocoder_name_map`), and the config itself from
-  the tensor shapes (`infer_vocoder_config`).
+  the tensor shapes (`infer_vocoder_config`); `voicefixer_state_from_vocoder`
+  writes a `Vocoder` back in that layout (plain `weight` / `bias`).
 """
 
 from __future__ import annotations
@@ -150,6 +154,72 @@ def nvsr_state_from_flax(variables) -> dict:
         k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith("num_batches_tracked") else np.float32))
         for k, v in flax_to_port_arrays(variables).items()
     }
+
+
+# ----------------------------------------------------------------------
+# port state dict -> JAX variables tree
+# ----------------------------------------------------------------------
+
+_GRU_ENTRY = re.compile(r"(.+)\.gru\.(weight_ih|weight_hh|bias_ih|bias_hh)_l(\d+)(_reverse)?")
+
+
+def _flax_kernel(path, w):
+    """Inverse of `_kernel`: a port weight -> the flax kernel."""
+    if w.ndim == 2:
+        return w.T
+    if w.ndim == 3:
+        return w.transpose(2, 0, 1)[::-1] if _is_transposed(path) else w.transpose(2, 1, 0)
+    if w.ndim == 4:
+        return w.transpose(2, 3, 0, 1)[::-1, ::-1] if _is_transposed(path) else w.transpose(2, 3, 1, 0)
+    raise ValueError(f"weight of rank {w.ndim} at {'.'.join(path)}")
+
+
+def _put(tree, path, leaf, value):
+    node = tree
+    for k in path:
+        node = node.setdefault(k, {})
+    node[leaf] = np.ascontiguousarray(value, dtype=np.float32)
+
+
+def flax_from_nvsr_state(state_dict) -> dict:
+    """The port's state dict (tensors or arrays) -> the JAX package's
+    variables tree {"params": ..., "batch_stats": ...} of float32 NumPy
+    arrays: the exact inverse of `nvsr_state_from_flax`.  A GRU's b_hr and
+    b_hz have no flax counterpart and must be 0 (BNGRU keeps them so);
+    num_batches_tracked is dropped."""
+    sd = {k: _to_np(v) for k, v in state_dict.items()}
+    bns = {k[: -len(".running_mean")] for k in sd if k.endswith(".running_mean")}
+    params, stats = {}, {}
+    for key, v in sd.items():
+        pre, leaf = key.rsplit(".", 1)
+        path = pre.split(".")
+        m = _GRU_ENTRY.fullmatch(key)
+        if m is not None:
+            node, kind, layer, rev = m.groups()
+            cell = node.split(".") + [f"GRUCell_{2 * int(layer) + (rev is not None)}"]
+            gates = ("ir", "iz", "in") if kind.endswith("_ih") else ("hr", "hz", "hn")
+            for gate, part in zip(gates, np.split(v, 3)):
+                if kind.startswith("weight"):
+                    _put(params, cell + [gate], "kernel", part.T)
+                elif gate in ("hr", "hz"):
+                    if np.any(part):
+                        raise ValueError(f"{key}: b_{gate} is not 0; flax's GRUCell has no such bias")
+                else:
+                    _put(params, cell + [gate], "bias", part)
+        elif pre in bns:
+            if leaf in ("running_mean", "running_var"):
+                _put(stats, path, "mean" if leaf == "running_mean" else "var", v)
+            elif leaf in ("weight", "bias"):
+                _put(params, path, "scale" if leaf == "weight" else "bias", v)
+            elif leaf != "num_batches_tracked":
+                raise ValueError(f"unknown BatchNorm entry {key}")
+        elif leaf == "weight":
+            _put(params, path, "kernel", _flax_kernel(path, v))
+        elif leaf == "bias":
+            _put(params, path, "bias", v)
+        else:
+            raise ValueError(f"unknown state entry {key}")
+    return {"params": params, "batch_stats": stats}
 
 
 # ----------------------------------------------------------------------
@@ -285,3 +355,20 @@ def vocoder_state_from_voicefixer(state_dict, cfg=None, prefix="vocoder.model.")
             out[f"{prefix}{name}.bias"] = torch.from_numpy(np.ascontiguousarray(_to_np(sd[f"{src}.bias"]), np.float32))
             matched.add(f"{src}.bias")
     return out, [k for k in sd if k not in matched]
+
+
+def voicefixer_state_from_vocoder(model, cfg=None) -> dict:
+    """The inverse of `vocoder_state_from_voicefixer`: a port `Vocoder` (or
+    its `TFGANGenerator`) -> a voicefixer-structure state dict of plain
+    `weight` / `bias` float32 CPU tensors (`generator.<i>...` names, as the
+    JAX package's `train_vocoder.export_torch_state_dict` writes).  The
+    port's convs keep torch's layouts, so nothing is transposed."""
+    gen = getattr(model, "model", model)
+    cfg = cfg or gen.cfg
+    sd = {}
+    for src, (name, _kind) in vocoder_name_map(cfg).items():
+        mod = getattr(gen, name)
+        sd[f"{src}.weight"] = mod.weight.detach().to("cpu", torch.float32).clone()
+        if mod.bias is not None:
+            sd[f"{src}.bias"] = mod.bias.detach().to("cpu", torch.float32).clone()
+    return sd

@@ -11,8 +11,9 @@ Generator variants match the reference's registry (nvsr_unet.py:185-236):
 BiGRU -> MLP head), 'dnn' (MLP stack with BN).  to_log clips at 1e-8 and
 from_log clips the exponent at +5 (nvsr_unet.py:130-139).
 
-Modules are inference modules: call `.eval()` (the testees do), so every
-BatchNorm reads its running statistics.
+`.eval()` (the testees' mode) reads every BatchNorm's running statistics;
+`.train()` is flax's `train=True` (models/train.py): batch statistics, and
+running statistics updated as flax updates its `batch_stats`.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from torch import nn
 
 from ssr_eval_tpu_torch.dsp.spectral import StftConfig, stft_magnitude
 from ssr_eval_tpu_torch.models.mel import MelScale
-from ssr_eval_tpu_torch.models.unet import UNetRes
+from ssr_eval_tpu_torch.models.unet import FlaxBatchNorm, UNetRes
 from ssr_eval_tpu_torch.models.vocoder import HiFiGANVocoder, TFGANConfig, Vocoder
 
 NVSR_STFT = StftConfig(n_fft=2048, hop=441)
@@ -38,15 +39,21 @@ def from_log(x):
     return torch.pow(10.0, torch.clamp(x, max=5.0))
 
 
-class _ScalarBN(nn.BatchNorm1d):
+class _ScalarBN(FlaxBatchNorm, nn.BatchNorm1d):
     """BatchNorm over one pseudo-channel: every element of [..., F] shares
     one affine (the JAX package's `BatchNorm()(x[..., None])[..., 0]`)."""
 
     def __init__(self):
-        super().__init__(1)
+        super().__init__(1, momentum=0.01)
 
     def forward(self, x):
         return super().forward(x.reshape(-1, 1)).reshape(x.shape)
+
+
+def _zero_rz_grad(grad):
+    """bias_hh = (b_hr, b_hz, b_hn): only b_hn exists in flax's cell."""
+    h = grad.shape[0] // 3
+    return torch.cat([torch.zeros_like(grad[: 2 * h]), grad[2 * h :]])
 
 
 class BNGRU(nn.Module):
@@ -55,12 +62,16 @@ class BNGRU(nn.Module):
 
     flax's GRUCell has no hidden bias on the r and z gates and its `hn`
     bias is torch's `b_hn`, so `nn.GRU` computes the JAX cell exactly with
-    b_hr = b_hz = 0 (models/convert.py writes them so)."""
+    b_hr = b_hz = 0 (models/convert.py writes them so).  A gradient hook
+    zeroes their gradient, so training keeps them 0."""
 
     def __init__(self, in_features: int, hidden: int, layers: int = 2):
         super().__init__()
         self.bn = _ScalarBN()
         self.gru = nn.GRU(in_features, hidden, num_layers=layers, batch_first=True, bidirectional=True)
+        for name, p in self.gru.named_parameters():
+            if name.startswith("bias_hh"):
+                p.register_hook(_zero_rz_grad)
 
     def forward(self, x):
         # x: [B, T, F] -> [B, T, 2 * hidden]

@@ -1,0 +1,136 @@
+"""NVSR generator training on one CUDA card.
+
+Counterpart of ``ssr_eval_tpu.models.train.NVSRTrainer`` (the reference
+never trains; this is the JAX package's native training path):
+
+- loss: L1 in log-mel space between the generator's output and the
+  high-resolution target, mean |out["mel"] - to_log(mel_hr)|;
+- the generator in train mode: BatchNorm normalises with batch statistics
+  and updates its running statistics as flax updates `batch_stats`
+  (models/unet.py `FlaxBatchNorm`);
+- optimizer: AdamW with optax.adamw's defaults (betas 0.9 / 0.999, eps
+  1e-8, weight decay 1e-4; torch's default decay is 0.01) over every
+  generator parameter.
+
+JAX's state is immutable; here the state holds the generator module and its
+optimizer, and `step` updates both in place.  Checkpoints are the JAX
+package's `.npz` variables tree ({"params": {"generator": ...},
+"batch_stats": {"generator": ...}}, `convert.flax_from_nvsr_state`), which
+`NVSRTestee.load_generator_checkpoint` and the JAX package both read.
+
+`mesh`: the JAX trainer's dp x tp step over a device mesh is not ported yet
+(ROADMAP.md 1.15); one card only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ssr_eval_tpu_torch.device import resolve_device
+from ssr_eval_tpu_torch.models.nvsr import NVSR, init_weights, to_log
+
+
+def adamw(params, learning_rate):
+    """torch AdamW with optax.adamw's defaults."""
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+class NVSRTrainer:
+    """Generator training.  device: None is the CUDA card (raises without
+    one), "cpu" the CPU."""
+
+    def __init__(self, model_name="unet", learning_rate=1e-4, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "NVSRTrainer runs on one card; the dp x tp mesh step is ROADMAP.md 1.15"
+            )
+        self.device = resolve_device(device)
+        self.model = NVSR(model_name=model_name)
+        self.learning_rate = learning_rate
+
+    def init_state(self, seed: int = 0, params=None):
+        """{"model": the generator in train mode on the device, "opt": its
+        AdamW}.  Weights: `params`, the JAX package's variables tree of the
+        generator ({"params": {"generator": ...}, "batch_stats": ...}, as
+        NumPy arrays), else `nvsr.init_weights(seed)`."""
+        gen = self.model.generator
+        if params is not None:
+            from ssr_eval_tpu_torch.models.convert import nvsr_state_from_flax
+
+            sub = {c: {"generator": params[c]["generator"]} for c in ("params", "batch_stats") if c in params}
+            state = nvsr_state_from_flax(sub)
+            gen.load_state_dict({k[len("generator."):]: v for k, v in state.items()})
+        else:
+            init_weights(gen, seed)
+        gen.to(self.device).train()
+        return {"model": gen, "opt": adamw(gen.parameters(), self.learning_rate)}
+
+    @staticmethod
+    def loss(gen, mel_lr, mel_hr):
+        """mean |gen(mel_lr)["mel"] - to_log(mel_hr)| (train-mode forward)."""
+        return torch.mean(torch.abs(gen(mel_lr)["mel"] - to_log(mel_hr)))
+
+    def step(self, state, mel_lr, mel_hr):
+        """One AdamW step on a batch [B, T, M] -> (state, loss as a 0-d
+        tensor on the device)."""
+        opt = state["opt"]
+        opt.zero_grad(set_to_none=True)
+        loss = self.loss(state["model"], mel_lr, mel_hr)
+        loss.backward()
+        opt.step()
+        return state, loss.detach()
+
+    def fit(
+        self,
+        audios,
+        steps: int = 100,
+        batch: int = 8,
+        crop_seconds: float = 1.0,
+        seed: int = 0,
+        ckpt_path: str | None = None,
+        ckpt_every: int = 50,
+        log_every: int = 10,
+        cutoffs=(2000, 4000, 8000, 12000),
+    ):
+        """Train the mel generator on HR audio with on-device degradation.
+
+        audios: list of float32 HR waveforms at 44.1 kHz (host).  Returns
+        (state, losses).  Writes a checkpoint every `ckpt_every` steps when
+        `ckpt_path` is given."""
+        from ssr_eval_tpu_torch.models.data import MelPairPipeline
+
+        pipe = MelPairPipeline(crop_seconds=crop_seconds, cutoffs=cutoffs, device=self.device)
+        rng = np.random.default_rng(seed)
+        state = self.init_state(seed)
+        losses = []
+        for step in range(steps):
+            wav = pipe.random_crops(audios, rng, batch)
+            mel_lr, mel_hr = pipe.make_pair(wav, spec_idx=step)
+            state, loss = self.step(state, mel_lr, mel_hr)
+            losses.append(float(loss))
+            if log_every and step % log_every == 0:
+                print(f"[train] step {step} loss {losses[-1]:.4f}")
+            if ckpt_path and ckpt_every and (step + 1) % ckpt_every == 0:
+                self.save(ckpt_path, state)
+        return state, losses
+
+    def variables(self, state) -> dict:
+        """The generator's weights as the JAX package's variables tree."""
+        from ssr_eval_tpu_torch.models.convert import flax_from_nvsr_state
+
+        return flax_from_nvsr_state({f"generator.{k}": v for k, v in state["model"].state_dict().items()})
+
+    def save(self, path: str, state) -> str:
+        """Write the generator's `.npz` checkpoint; returns its path."""
+        from ssr_eval_tpu_torch.models.checkpoint import save_variables
+
+        return save_variables(path, self.variables(state))
+
+    def make_batch(self, seed, batch, t_frames=64, n_mels=128):
+        """A synthetic (mel_lr, mel_hr) batch made with NumPy from `seed`:
+        mel_lr = |N(0, 1)| + 1e-3, mel_hr = mel_lr + 0.1 |N(0, 1)|."""
+        rng = np.random.default_rng(seed)
+        mel_lr = np.abs(rng.standard_normal((batch, t_frames, n_mels))).astype(np.float32) + np.float32(1e-3)
+        mel_hr = mel_lr + np.float32(0.1) * np.abs(rng.standard_normal(mel_lr.shape)).astype(np.float32)
+        return torch.from_numpy(mel_lr).to(self.device), torch.from_numpy(mel_hr).to(self.device)

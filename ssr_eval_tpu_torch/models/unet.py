@@ -14,7 +14,8 @@ torch names (`encoder_block1.conv_block1.bn1`, `conv1`, `bn2`, `conv2`,
 `shortcut`, `conv_block7`, `decoder_block{i}.conv1`, `after_conv_block1`,
 `after_conv2`), so a reference state dict loads with `load_state_dict`.
 Channel counts are explicit (torch builds modules eagerly): every block is
-told its input width.
+told its input width.  Every BatchNorm trains as flax's does
+(`FlaxBatchNorm`), so `.train()` follows the JAX package's `train=True`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,34 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class FlaxBatchNorm:
+    """flax.linen.BatchNorm(momentum=0.99)'s training semantics on a torch
+    BatchNorm (mixed in before nn.BatchNorm1d / 2d, built with momentum
+    0.01): in train mode the batch statistics normalise, and the running
+    statistics move 0.01 of the way to the batch mean and the BIASED batch
+    variance (torch's own update takes the unbiased one).  flax keeps no
+    batch count, so num_batches_tracked stays as loaded.  Eval mode reads the
+    running statistics as torch does."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
+    def __init__(self, num_features: int):
+        super().__init__(num_features, momentum=0.01)
 
 
 class ConvBlockRes(nn.Module):
@@ -37,10 +66,10 @@ class ConvBlockRes(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, fold_bn: bool = False):
         super().__init__()
         self.fold_bn = fold_bn
-        self.bn1 = nn.BatchNorm2d(in_ch)
+        self.bn1 = BatchNorm2d(in_ch)
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=fold_bn)
         if not fold_bn:
-            self.bn2 = nn.BatchNorm2d(out_ch)
+            self.bn2 = BatchNorm2d(out_ch)
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
         if in_ch != out_ch:
             self.shortcut = nn.Conv2d(in_ch, out_ch, 1)
@@ -76,7 +105,7 @@ class DecoderGroup(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, blocks: int = 4, fold_bn: bool = False):
         super().__init__()
         self.blocks = blocks
-        self.bn1 = nn.BatchNorm2d(in_ch)
+        self.bn1 = BatchNorm2d(in_ch)
         self.conv1 = nn.ConvTranspose2d(in_ch, out_ch, 3, stride=2, padding=0, bias=False)
         for i in range(blocks):
             setattr(self, f"conv_block{i + 2}", ConvBlockRes(2 * out_ch if i == 0 else out_ch, out_ch, fold_bn))

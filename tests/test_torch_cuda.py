@@ -13,7 +13,9 @@ float64 sosfiltfilt; a sweep on the card within LSD 2.5e-4, log-SiSpec
 (chip_smoke.py's limits); the |STFT| eps floor on the card within 1e-5 of
 max of the CPU's with silent frames at exactly sqrt(eps); a small-width
 NVSR testee's waveform on the card within 1e-4 of max|CPU| (cuDNN's fp32
-convolutions against the CPU's, TF32 off).
+convolutions against the CPU's, TF32 off); the |STFT| backward kernel
+within 1e-5 of max|grad| of its plain version (torch autograd) and of a
+float64 autograd (both float32 FFTs round at ~1e-6 of max).
 """
 
 import os
@@ -27,7 +29,12 @@ from ssr_eval_tpu_torch.degrade import apply as deg
 
 from ssr_eval_tpu_torch.degrade.plan import expand_settings
 from ssr_eval_tpu_torch.dsp.spectral import window_tensor
-from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel, stft_magnitude_plain
+from ssr_eval_tpu_torch.dsp.stft_kernel import (
+    stft_magnitude_backward_kernel,
+    stft_magnitude_backward_plain,
+    stft_magnitude_kernel,
+    stft_magnitude_plain,
+)
 from ssr_eval_tpu_torch.harness.engine import EvalEngine
 from ssr_eval_tpu_torch.harness.fixtures import speechlike
 from ssr_eval_tpu_torch.harness.testee import BatchedTestee, state_from_numpy
@@ -260,3 +267,64 @@ def test_nvsr_infer_batch_leaves_no_graph_on_card(card):
     y, _ = t.infer_batch(x.to(card), n.to(card))
     assert y.grad_fn is None and not y.requires_grad and torch.is_inference(y)
     assert all(p.requires_grad for p in t.model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_fft,hop,rows,mf",
+    [
+        (2048, 441, 4, 36), (2048, 441, 3, 37), (512, 128, 4, 37), (4096, 1024, 2, 9),
+        (2, 1, 3, 5), (32, 7, 2, 7), (256, 300, 2, 5),
+    ],
+)
+def test_cuda_backward_kernel_matches_plain_and_float64(card, n_fft, hop, rows, mf):
+    g = torch.Generator().manual_seed(n_fft + mf)
+    ext = (0.1 * torch.randn(rows, (mf - 1) * hop + n_fft + 13, generator=g)).to(card)
+    gm = torch.randn(rows, mf, n_fft // 2 + 1, generator=g).to(card)
+    win = window_tensor(n_fft, n_fft, card)
+    before = stft_magnitude_backward_kernel.launches
+    got = stft_magnitude_backward_kernel(ext, gm, n_fft, hop, mf, win)
+    torch.cuda.synchronize()
+    assert stft_magnitude_backward_kernel.launches == before + 1
+    want = stft_magnitude_backward_plain(ext, gm, n_fft, hop, mf, win)
+    ref = stft_magnitude_backward_plain(ext.double(), gm.double(), n_fft, hop, mf, win.double())
+    assert got.shape == ext.shape
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert ((got.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_ext_requiring_grad_gets_the_backward_kernel(card):
+    """The fault this route repairs: a CUDA ext that requires a gradient
+    once left the kernel with no grad_fn.  Now the graph holds
+    StftMagnitudeFn, and backward() launches the backward kernel once and
+    matches the CPU's autograd through the eps floor and _extend."""
+    from ssr_eval_tpu_torch.dsp.spectral import stft_magnitude
+    from ssr_eval_tpu_torch.models.nvsr import NVSR_STFT
+
+    x, n = _nvsr_buffers()
+    mf = NVSR_STFT.max_frames(x.shape[1])
+    gm = torch.randn(2, mf, NVSR_STFT.n_bins, generator=torch.Generator().manual_seed(5))
+    xc = x.to(card).requires_grad_(True)
+    mag = stft_magnitude(xc, n.to(card), NVSR_STFT, mf, eps=1e-8)
+    assert mag.grad_fn is not None
+    before = stft_magnitude_backward_kernel.launches
+    mag.backward(gm.to(card))
+    torch.cuda.synchronize()
+    assert stft_magnitude_backward_kernel.launches == before + 1
+    xh = x.clone().requires_grad_(True)
+    stft_magnitude(xh, n, NVSR_STFT, mf, eps=1e-8).backward(gm)
+    # the speech rows hold bins just above the eps floor, whose phase
+    # float32 resolves only to ~1e-2: 1e-4 of max (tests/test_torch_train_vocoder.py)
+    assert ((xc.grad.cpu() - xh.grad).abs().max() / xh.grad.abs().max()).item() <= 1e-4
+    with torch.no_grad():
+        assert stft_magnitude(xc, n.to(card), NVSR_STFT, mf).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_backward_raises_for_bluestein(card):
+    win = window_tensor(2229, 2229, card)
+    ext = torch.randn(1, 3000, device=card, requires_grad=True)
+    mag = stft_magnitude_kernel(ext, 2229, 480, 2, win)
+    with pytest.raises(NotImplementedError, match="Bluestein"):
+        mag.sum().backward()

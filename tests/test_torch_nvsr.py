@@ -37,6 +37,7 @@ from ssr_eval_tpu_torch.io.audio import write_wav
 from ssr_eval_tpu_torch.models import convert, nvsr, testees
 from ssr_eval_tpu_torch.models.unet import UNetRes
 from ssr_eval_tpu_torch.models.vocoder import TFGANConfig
+from tests.oracles import stft_np
 
 WAVE_TOL = 1e-4  # of max|JAX|
 SMALL_TFGAN = dict(channels=96, res_dilations=(1, 3))
@@ -74,13 +75,23 @@ def _buffers(seed=0):
 
 
 def test_stft_magnitude_eps_matches_jax():
+    """Each package gets its own copy of the input (torch.from_numpy and a
+    zero-copy jnp.asarray would otherwise share one buffer), and each is
+    also held to a float64 NumPy STFT on the valid frames, so a mismatch
+    names the side that moved."""
     x, n = _buffers()
     cfg = nvsr.NVSR_STFT
     mf = cfg.max_frames(x.shape[1])
-    got = stft_magnitude(torch.from_numpy(x), torch.from_numpy(n), cfg, mf, eps=1e-8)
+    got = stft_magnitude(torch.from_numpy(x.copy()), torch.from_numpy(n), cfg, mf, eps=1e-8)
     want = jax.vmap(lambda xi, li: j_stft_magnitude(xi, li, j_nvsr.NVSR_STFT, mf, eps=1e-8))(
-        jnp.asarray(x), jnp.asarray(n)
+        jnp.asarray(x.copy()), jnp.asarray(n)
     )
+    for r in range(2):
+        nf = 1 + n[r] // cfg.hop
+        ref = np.sqrt(np.maximum(np.abs(stft_np(x[r, : n[r]].astype(np.float64), cfg.n_fft, cfg.hop)) ** 2, 1e-8)).T
+        assert ref.shape[0] == nf
+        _close(got[r, :nf], ref, tol=1e-5)
+        _close(np.asarray(want)[r, :nf], ref, tol=1e-5)
     _close(got, want, tol=1e-5)
     # silent frames sit exactly on the floor; eps=0 leaves them at zero
     assert float(got.min()) == pytest.approx(1e-4, rel=1e-6)
