@@ -54,10 +54,17 @@ Phases (any failure raises and the script exits non-zero):
              identity testee's LSD at every cutoff); bf16 vs fp32 per pair
              within NVSR_BF16 (and LSD within the JAX package's 0.5), both
              timed.
-  train      NVSR training.  (a) the |STFT| backward kernel at BWD_SHAPES
-             against its plain version (torch autograd) and a float64 CPU
-             autograd (BWD_TOL), timed with the backward of
-             torch.stft(...).abs() beside it.  (b) the full-width
+  train      NVSR training.  (a) the |STFT| backward kernel (one launch,
+             every n_fft) at BWD_SHAPES against its plain version (torch
+             autograd) and a float64 CPU autograd (BWD_TOL), timed with the
+             backward of torch.stft(...).abs() beside it and at the forced
+             frames per segment BWD_FORCED; row 0 alone bit-identical to
+             row 0 in the batch at 2048/441 and 2229/480, at the kernel's
+             choice and at BWD_FORCED; the gradient of the 48 kHz LSD
+             (2229/480, Bluestein) with respect to the estimate on the card
+             and on the CPU, each against a float64 autograd, whole
+             (LSD_GRAD_RATIO) and with the bins float32 cannot resolve held
+             constant (LSD_GRAD_TOL).  (b) the full-width
              NVSRTrainer("unet") in examples/train_nvsr.py's configuration:
              fit steps (2 |STFT| launches each, the mel pairs), the
              checkpoint reloaded into NVSRTestee("unet") and run, then 10
@@ -156,10 +163,30 @@ NVSR_BF16 = {"lsd": 2e-3, "log_sispec": 0.6, "sispec": 0.1, "ssim": 2e-4}
 TRAINED_CUTOFFS = [2000, 4000, 6000]  # doubled by the helper: tests/test_trained_small.py:38
 # The train phase.  The |STFT| backward kernel's shapes: the vocoder loss's
 # [4, 36 frames] (0.35 s crops: 35 conditioning frames -> 15,435 synthesized
-# samples -> 36), [16, 604 frames] and 512/128.  Gate: 1e-5 of max|grad| of a
-# float64 CPU autograd (float32 FFTs round at ~1e-6 of max).
-BWD_SHAPES = [(4, 36, 2048, 441), (16, 604, 2048, 441), (16, 257, 512, 128)]
+# samples -> 36), [16, 604 frames] and 512/128, and the kernel phase's 48 kHz
+# (2229/480) and 16 kHz (743/160) metric STFTs at [16, 744] (Bluestein).
+# Gate: 1e-5 of max|grad| of a float64 CPU autograd (float32 FFTs round at
+# ~1e-6 of max) and 1e-4 of max of the plain version on the card.
+BWD_SHAPES = [(4, 36, 2048, 441), (16, 604, 2048, 441), (16, 257, 512, 128), (16, 744, 2229, 480),
+              (16, 744, 743, 160)]
 BWD_TOL = 1e-5
+BWD_PLAIN_TOL = 1e-4
+# Frames per segment forced besides the kernel's own choice: the batch
+# invariance check (row 0 alone vs in the batch, bit for bit) runs at each,
+# and the kernel is timed at each beside its choice.
+BWD_FORCED = (1, 3, 16)
+# The 48 kHz metric gradient: d LSD / d estimate for 2 utterances of this
+# length.  LSD's gradient is ill-conditioned: d LSD / d|X| grows as 1/|X| at
+# the estimate's smallest bins, where float32 resolves the phase X/|X|
+# worst, so on speech plus a 1e-3 floor the CPU's own float32 gradient
+# sits ~1e-2 of max off float64.  The whole gradient is held no further
+# from a float64 CPU autograd than LSD_GRAD_RATIO x the CPU's float32
+# autograd (tests/test_torch_train_vocoder.py's rule for ill-conditioned
+# gradients).  With the estimate's bins below LSD_GRAD_FLOOR x their
+# frame's rms held constant (about a third of the bins; the CPU's float32 error
+# falls to ~3e-5 of max), the card is held within LSD_GRAD_TOL of the
+# float64 autograd and of the CPU.
+LSD_GRAD_SECONDS, LSD_GRAD_RATIO, LSD_GRAD_FLOOR, LSD_GRAD_TOL = 1.5, 1.5, 1e-2, 1e-4
 # The generator in examples/train_nvsr.py's configuration: 16 speech-like
 # 2 s clips, batch 8, 1 s crops, lr 1e-4, cutoffs 2-12 kHz; a few fit steps,
 # then steps on one fixed batch.
@@ -948,12 +975,15 @@ def phase_backward_kernel():
     """The |STFT| backward kernel against its plain version (torch autograd
     on the card) and a float64 CPU autograd; kernel, plain and the backward
     of torch.stft(...).abs() (a yardstick the port never calls) timed on
-    the same saved graphs."""
+    the same saved graphs; row 0 alone vs in the batch, bit for bit."""
     import torch
 
     from ssr_eval_tpu_torch.device import resolve_device
     from ssr_eval_tpu_torch.dsp.spectral import window_tensor
     from ssr_eval_tpu_torch.dsp.stft_kernel import (
+        _backward,
+        _backward_plan,
+        _fft_plan,
         stft_magnitude_backward_kernel,
         stft_magnitude_backward_plain,
         stft_magnitude_plain,
@@ -977,29 +1007,144 @@ def phase_backward_kernel():
         rel64 = (got.cpu().double() - ref).abs().max().item() / peak
         plain_rel64 = (want.cpu().double() - ref).abs().max().item() / peak
         del ref
-        if got.shape != ext.shape or not rel <= BWD_TOL or not rel64 <= BWD_TOL:
+        if got.shape != ext.shape or not rel <= BWD_PLAIN_TOL or not rel64 <= BWD_TOL:
             raise AssertionError(
-                f"stft backward kernel [{B}, {mf}] {n_fft}/{hop}: vs plain {rel:.3e}, vs float64 {rel64:.3e} "
-                f"(limit {BWD_TOL})"
+                f"stft backward kernel [{B}, {mf}] {n_fft}/{hop}: vs plain {rel:.3e} (limit {BWD_PLAIN_TOL}), "
+                f"vs float64 {rel64:.3e} (limit {BWD_TOL})"
             )
+        # row 0 alone and in the batch, at the kernel's S and at BWD_FORCED
+        invariant = None
+        if (n_fft, hop) in ((2048, 441), (2229, 480)) and B > 1:
+            one = stft_magnitude_backward_kernel(ext[:1].contiguous(), gm[:1].contiguous(), n_fft, hop, mf, win)
+            forced = [_backward(ext, gm, n_fft, hop, mf, win, s) for s in BWD_FORCED]
+            invariant = all(torch.equal(x[:1], one) for x in [got, *forced])
+            if not invariant:
+                raise AssertionError(f"stft backward [{B}, {mf}] {n_fft}/{hop}: row 0 alone differs from row 0 "
+                                     f"in the batch (auto, {BWD_FORCED})")
         e = ext.clone().requires_grad_(True)
         m_plain = stft_magnitude_plain(e, n_fft, hop, mf, win)
         m_lib = torch.stft(e, n_fft, hop, window=win, center=False, return_complex=True).abs()
         g_lib = gm.transpose(1, 2)
         ms = cuda_ms(lambda: stft_magnitude_backward_kernel(ext, gm, n_fft, hop, mf, win))
+        forced_ms = {s: cuda_ms(lambda: _backward(ext, gm, n_fft, hop, mf, win, s)) for s in BWD_FORCED}
         plain_ms = cuda_ms(lambda: torch.autograd.grad(m_plain, e, gm, retain_graph=True))
         library_ms = cuda_ms(lambda: torch.autograd.grad(m_lib, e, g_lib, retain_graph=True))
         del m_plain, m_lib
         bound_ms, bound_by, nbytes, flops = bwd_bound(B, ext_len, mf, n_fft)
+        plan = _fft_plan(n_fft)
         s = dict(
-            n_fft=n_fft, hop=hop, shape=[B, mf, n_fft // 2 + 1], ext_len=ext_len,
+            n_fft=n_fft, hop=hop, shape=[B, mf, n_fft // 2 + 1], ext_len=ext_len, path=plan.kind,
+            fft_len=plan.fft_len, seg_frames=_backward_plan(B, ext_len, n_fft, hop, mf),
             max_abs_err=max_abs, max_rel_err=rel, max_rel_err_f64=rel64, plain_max_rel_err_f64=plain_rel64,
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bytes=nbytes, flops=flops,
+            ms=ms, ms_at_seg_frames=forced_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            flops=flops, row_alone_equals_in_batch=invariant,
         )
         log("[train-kernel]", json.dumps(s))
         shapes.append(s)
     return shapes
+
+
+def _metric_stft(x, lens, cfg, mf):
+    """|STFT| of [B, L] buffers as spectral_metrics computes it: through the
+    kernel wrapper in float32, through its plain version in float64 (the
+    wrapper takes float32 only)."""
+    import torch
+
+    from ssr_eval_tpu_torch.dsp import spectral
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_plain
+
+    if x.dtype != torch.float64:
+        return spectral.stft_magnitude(x, lens, cfg, mf)
+    win = torch.from_numpy(spectral._padded_window64(cfg.n_fft, cfg.win))
+    return stft_magnitude_plain(spectral._framing_source(x, lens, cfg, mf), cfg.n_fft, cfg.hop, mf, win)
+
+
+def _lsd_of(est, tgt, lens, cfg, mf, keep=None):
+    """The metric LSD of [B, L] buffers, the estimate's bins outside `keep`
+    [B, F, K] held constant: no gradient flows through them."""
+    import torch
+
+    from ssr_eval_tpu_torch.dsp import spectral
+    from ssr_eval_tpu_torch.metrics.kernels import _lsd
+
+    est_sp, tgt_sp = _metric_stft(est, lens, cfg, mf), _metric_stft(tgt, lens, cfg, mf)
+    if keep is not None:
+        est_sp = torch.where(keep, est_sp, est_sp.detach())
+    nf = spectral.n_frames_for_length(cfg, lens)
+    return _lsd(est_sp, tgt_sp, (torch.arange(mf, device=est.device)[None, :] < nf[:, None]).to(est.dtype))
+
+
+def phase_metric_gradient():
+    """d sum(LSD) / d estimate at the 48 kHz metric STFT (2229/480, the
+    Bluestein backward) for 2 utterances, the estimate the target plus a
+    broadband floor (as the sweep's testee): on the card (one backward
+    launch each) and on the CPU, each against a float64 CPU autograd.  The
+    whole gradient through spectral_metrics, and the same gradient with the
+    estimate's bins below LSD_GRAD_FLOOR x their frame's rms held constant
+    (see LSD_GRAD_FLOOR)."""
+    import torch
+
+    from ssr_eval_tpu_torch.device import resolve_device
+    from ssr_eval_tpu_torch.dsp import spectral
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_backward_kernel
+    from ssr_eval_tpu_torch.harness.fixtures import speechlike
+    from ssr_eval_tpu_torch.metrics.kernels import metric_stft_config, spectral_metrics
+
+    sr = 48000
+    cfg = metric_stft_config(sr)
+    lens = [int(LSD_GRAD_SECONDS * sr), int(0.8 * LSD_GRAD_SECONDS * sr)]
+    tgt = np.zeros((2, lens[0]), np.float32)
+    for i, n in enumerate(lens):
+        tgt[i, :n] = speechlike(n / sr, sr, seed=6000 + i)[:n]
+    noise = (1e-3 * np.random.default_rng(NOISE_SEED).standard_normal(tgt.shape)).astype(np.float32)
+    est = (tgt + noise * (np.arange(lens[0])[None, :] < np.asarray(lens)[:, None])).astype(np.float32)
+    mf = cfg.max_frames(lens[0])
+    # float64: the whole gradient, the bins held and the held gradient
+    n64, t64 = torch.tensor(lens), torch.from_numpy(tgt).double()
+    e64 = torch.from_numpy(est).double().requires_grad_(True)
+    _lsd_of(e64, t64, n64, cfg, mf).sum().backward()
+    g64 = e64.grad
+    with torch.no_grad():
+        sp64 = _metric_stft(e64, n64, cfg, mf)
+    keep = sp64 >= LSD_GRAD_FLOOR * sp64.pow(2).mean(-1, keepdim=True).sqrt()
+    frames = (torch.arange(mf)[None, :] < spectral.n_frames_for_length(cfg, n64)[:, None])[:, :, None]
+    held = (frames & ~keep).sum().item() / (frames.sum().item() * cfg.n_bins)
+    e64.grad = None
+    _lsd_of(e64, t64, n64, cfg, mf, keep).sum().backward()
+    h64 = e64.grad
+    grads = {}
+    for dev in ("card", "cpu"):
+        d = resolve_device() if dev == "card" else torch.device("cpu")
+        n, t = torch.tensor(lens, device=d), torch.from_numpy(tgt).to(d)
+        e = torch.from_numpy(est).to(d).requires_grad_(True)
+        before = stft_magnitude_backward_kernel.launches
+        lsd = spectral_metrics(e, n, t, n, cfg, mf)["lsd"]
+        lsd.sum().backward()
+        whole = e.grad.cpu().double()
+        e.grad = None
+        _lsd_of(e, t, n, cfg, mf, keep.to(d)).sum().backward()
+        grads[dev] = (whole, e.grad.cpu().double(), lsd.detach().cpu(), stft_magnitude_backward_kernel.launches - before)
+    (g_card, h_card, lsd_card, n_card), (g_cpu, h_cpu, lsd_cpu, n_cpu) = grads["card"], grads["cpu"]
+
+    def err(a, b):  # max|a - b| / max|b|
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    r = dict(
+        held_bin_share=held,
+        whole=dict(card_vs_f64=err(g_card, g64), cpu_vs_f64=err(g_cpu, g64), card_vs_cpu=err(g_card, g_cpu)),
+        held=dict(card_vs_f64=err(h_card, h64), cpu_vs_f64=err(h_cpu, h64), card_vs_cpu=err(h_card, h_cpu)),
+        lsd_card=lsd_card.tolist(), lsd_cpu=lsd_cpu.tolist(), launches_card=n_card, launches_cpu=n_cpu,
+    )
+    log(f"[train-lsd-grad] 48 kHz LSD {cfg.n_fft}/{cfg.hop}, 2 x {LSD_GRAD_SECONDS} s, bins below "
+        f"{LSD_GRAD_FLOOR} x frame rms held: {json.dumps(r)} (limits: whole card_vs_f64 {LSD_GRAD_RATIO} x "
+        f"cpu_vs_f64; held card_vs_f64 and card_vs_cpu {LSD_GRAD_TOL})")
+    w, h = r["whole"], r["held"]
+    if (not w["card_vs_f64"] <= LSD_GRAD_RATIO * w["cpu_vs_f64"] or not h["card_vs_f64"] <= LSD_GRAD_TOL
+            or not h["card_vs_cpu"] <= LSD_GRAD_TOL or n_card != 2 or n_cpu != 0
+            or not (torch.isfinite(g_card).all() and torch.isfinite(h_card).all())):
+        raise AssertionError(f"48 kHz LSD gradient: {r}")
+    return r
 
 
 def _grad_delta(model_cpu, model_card, loss_cpu, loss_card):
@@ -1039,6 +1184,7 @@ def phase_train(work):
 
     dev = resolve_device()
     bwd_shapes = phase_backward_kernel()
+    phase_metric_gradient()
     launches = {}
 
     # (b) the full-width generator

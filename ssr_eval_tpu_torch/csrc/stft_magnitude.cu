@@ -53,35 +53,63 @@
 // so a row's output does not depend on its batch.  No TF32, no tensor
 // cores.
 //
-// The backward (ssr_stft_magnitude_backward, split path only) has no TPU
+// The backward (ssr_stft_magnitude_backward, every N <= 4096) has no TPU
 // counterpart: XLA differentiates the JAX package's |STFT|.  For one frame
 // with y = w * frame, X = rFFT(y), m = |X| and upstream gradient g:
 //   H[k] = g[k] X[k] / m[k]  (0 where m[k] = 0, torch's abs backward)
 //   d frame[n] = w[n] Re sum_{k<=N/2} H[k] e^{+2 pi i k n/N}
-// and d ext is the overlap-add of d frame at stride hop.  Two kernels:
-//   1. per frame, in shared memory: the forward's Stockham FFT recomputes Z
-//      (nothing of the forward is saved but ext); each thread turns a pair
-//      (Z[k], Z[P-k]) into (X[k], X[P-k]), then H, then the pair (C[k],
-//      C[P-k]) of the half-length inverse in place, with
-//        C[k] = (H[k] + conj H[P-k])/2 + i e^{+2 pi i k/N} (H[k] - conj H[P-k])/2,
-//        C[0] = (Re H[0] + Re H[P]) + i (Re H[0] - Re H[P]);
-//      then c = conj(FFT_P(conj C)) gives d frame[2m] = w Re c[m] and
-//      d frame[2m+1] = w Im c[m], written to a [B, max_frames, N] scratch.
-//   2. per ext sample j: the sum, in ascending frame order, of the <=
-//      ceil(N/hop) frames covering j.  No atomics: the order is fixed, so
-//      a row's gradient does not depend on its batch.
+// and d ext is the overlap-add of d frame at stride hop.  Nothing of the
+// forward is saved but ext: each frame's spectrum is recomputed.  Per frame,
+// in shared memory:
+//   split: the forward's Stockham FFT gives Z; each thread turns a pair
+//     (Z[k], Z[P-k]) into (X[k], X[P-k]), then H, then the pair (C[k],
+//     C[P-k]) of the half-length inverse in place, with
+//       C[k] = (H[k] + conj H[P-k])/2 + i e^{+2 pi i k/N} (H[k] - conj H[P-k])/2,
+//       C[0] = (Re H[0] + Re H[P]) + i (Re H[0] - Re H[P]);
+//     then c = conj(FFT_P(conj C)) gives d frame[2m] = w Re c[m] and
+//     d frame[2m+1] = w Im c[m].
+//   Bluestein, at the forward's M: the forward's two FFTs leave
+//     F[k] = c[k] conj X[k], so u[k] = g[k] conj F[k] / |F[k]| = H[k] conj c[k]
+//     for k < K (0 beyond).  With nk = (n^2 + k^2 - (n-k)^2)/2 the inverse is
+//     a chirp-z too: d frame[n] = w[n] Re(conj c[n] sum_{k<K} u[k] c[n-k]),
+//     a linear convolution of K inputs into N outputs, exact circularly at
+//     the same M >= N + K - 1.  Its kernel e[m] = c[|m|] is conj(b[-m]) for
+//     the forward's b, so FFT(e) = conj FFT(b) and the forward's table D
+//     serves: conj(FFT_M(u) D) -> FFT_M -> G = conj(u * e), and
+//     d frame[n] = w[n] Re(c[n] G[n]).  Four M-point FFTs per frame.
+// Each frame's gradient lands in its own FFT buffer (N unpadded floats).
+// One launch; the overlap-add is fused in shared memory.  A block owns the
+// output samples under S consecutive frame starts of one row, [s S hop,
+// (s+1) S hop) (the last segment runs to the end of the row), and computes
+// every frame that covers them: its S frames and the halo = ceil(N/hop) - 1
+// frames that start before the segment (their other samples belong to the
+// block before, which computes them too).  Frames run in rounds of the
+// block's frames in ascending order; after each round the block adds the
+// round's frames, in ascending order, into a shared-memory ring of the
+// segment's open samples (a power of two >= N slots), and after frame f
+// writes out every sample below (f+1) hop, which no later frame reaches (0
+// past the last frame's end).  One thread owns each sample (its adds, its
+// write, its slot), so the ring needs no barrier.  So each sample is one
+// fixed-order float32 sum, starting from 0, over its covering frames in
+// ascending order: the same for any S and any batch, with no atomics and
+// no per-frame scratch in device memory.  The ring keeps shared memory at
+// the forward's plus N floats whatever S, so S only trades the halo's
+// recompute against how evenly the blocks fill the SMs: segment_frames
+// picks it per shape.
 // Bound: ext and g read once, d ext written once (at [16, 604 frames],
 // 2048/441: 74 MB, ~22 us at 3.35 TB/s) against 2 x 2.5 N log2 N per frame
 // (1.1 GFLOP, ~16 us at 67 TFLOP/s): bytes bound it.  As in the forward,
-// shared-memory round trips of the FFT passes set the pace in practice.
-// The scratch adds a write and a read of B x max_frames x N floats beyond
-// the bound (158 MB at that shape); fusing the overlap-add into kernel 1
-// needs a fixed-order reduction across blocks and is left for later.
+// shared-memory round trips of the FFT passes set the pace in practice;
+// the halo adds about halo/S to them.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <array>
 #include <climits>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <utility>
 
 namespace {
@@ -378,7 +406,8 @@ stft_fft_kernel(const float* __restrict__ ext, const float* __restrict__ win,
   }
 }
 
-// Backward, start of the inverse: conj(C[i]) from the buffer.
+
+// Backward, start of the split inverse: conj(C[i]) from the buffer.
 struct LoadConjBuf {
   const float2* buf;
   __device__ __forceinline__ float2 operator()(int i) const {
@@ -387,14 +416,13 @@ struct LoadConjBuf {
   }
 };
 
-// Backward, end of the inverse: F = FFT_P(conj C) = conj(c), so
-// d frame[2m] = w[2m] Re F[m] and d frame[2m+1] = -w[2m+1] Im F[m].
+// Backward, end of the split inverse: F = FFT_P(conj C) = conj(c), so
+// d frame[2m] = w[2m] Re F[m] and d frame[2m+1] = -w[2m+1] Im F[m], into
+// the frame's buffer read as unpadded (d frame[2m], d frame[2m+1]) pairs.
 struct StoreFrameGrad {
-  float2* __restrict__ d;
+  float2* d;
   const float2* __restrict__ win;
-  bool valid;
   __device__ __forceinline__ void operator()(int m, float2 v) const {
-    if (!valid) return;
     const float2 w = __ldg(win + m);
     d[m] = make_float2(w.x * v.x, -w.y * v.y);
   }
@@ -415,97 +443,186 @@ __device__ __forceinline__ float2 mag_grad(float2 x, float g) {
   return make_float2(g * (x.x / m), g * (x.y / m));
 }
 
-// Kernel 1 of the backward: per-frame gradients d frame [B * max_frames, N]
-// (see the head of the file).  Same grid, threads and shared memory as the
-// forward's split path; P = N/2 = 2^kLog2P.
-template <int kLog2P>
-__global__ void __launch_bounds__(block_threads<1 << kLog2P>(), min_blocks<1 << kLog2P, false>())
-stft_bwd_frames_kernel(const float* __restrict__ ext, const float* __restrict__ win,
-                       const float2* __restrict__ tw, const float2* __restrict__ table_a,
-                       const float* __restrict__ grad_mag, float* __restrict__ grad_frames,
-                       int ext_len, int n_fft, int hop, int max_frames, int n_frames) {
-  constexpr int P = 1 << kLog2P;
-  constexpr int T = frame_threads<P>();
-  constexpr int kFrames = T >= kBlockThreads ? 1 : kBlockThreads / T;
-  constexpr int kBufLen = P + ((P - 1) >> 4);
-  extern __shared__ float2 smem[];
-  const int t = threadIdx.x % T;
-  const int fl = threadIdx.x / T;
-  float2* buf = smem + fl * kBufLen;
-  const int g = blockIdx.x * kFrames + fl;
-  const bool valid = g < n_frames;
-  const int b = valid ? g / max_frames : 0;
-  const int f = valid ? g - b * max_frames : 0;
-  const float* x = ext + static_cast<size_t>(b) * ext_len + static_cast<size_t>(f) * hop;
-  const int n_bins = n_fft / 2 + 1;
-  const float* gm = grad_mag + static_cast<size_t>(valid ? g : 0) * n_bins;
-  float2* d = reinterpret_cast<float2*>(grad_frames + static_cast<size_t>(valid ? g : 0) * n_fft);
-
-  fft<P, false>(buf, tw, t, LoadPairs{x, win, valid}, StoreBuf{buf});
-  // Pairs (k, P - k), k <= P/2: each thread reads and writes only its own
-  // pair's two slots, so the in-place update needs no barrier inside.
-  for (int k = t; k <= P / 2; k += T) {
-    const int j = P - k;
-    const float2 zk = buf[pad(k)];
-    const float2 zj = buf[pad(j & (P - 1))];
-    const float2 ak = __ldg(table_a + k), aj = __ldg(table_a + j);
-    const float2 hk = mag_grad(split_bin(zk, zj, ak), __ldg(gm + k));
-    const float2 hj = mag_grad(split_bin(zj, zk, aj), __ldg(gm + j));
-    if (k == 0) {
-      buf[pad(0)] = make_float2(hk.x + hj.x, hk.x - hj.x);
-      continue;
-    }
-    // e^{+2 pi i k/N} = conj(table_a[k])
-    const float2 ek = make_float2(0.5f * (hk.x + hj.x), 0.5f * (hk.y - hj.y));
-    const float2 ok = cmul(make_float2(0.5f * (hk.x - hj.x), 0.5f * (hk.y + hj.y)), make_float2(ak.x, -ak.y));
-    buf[pad(k)] = make_float2(ek.x - ok.y, ek.y + ok.x);  // E + i O
-    if (j != k) {
-      const float2 ej = make_float2(ek.x, -ek.y);  // (H[j] + conj H[k])/2 = conj E[k]
-      const float2 oj =
-          cmul(make_float2(0.5f * (hj.x - hk.x), 0.5f * (hj.y + hk.y)), make_float2(aj.x, -aj.y));
-      buf[pad(j)] = make_float2(ej.x - oj.y, ej.y + oj.x);
-    }
+// Bluestein backward, end of the second FFT: F[k] = c[k] conj X[k] ->
+// u[k] = g[k] conj F[k] / |F[k]| for k < n_bins, 0 beyond.
+struct StoreChirpMagGrad {
+  float2* buf;
+  const float* __restrict__ gm;
+  int n_bins;
+  bool valid;
+  __device__ __forceinline__ void operator()(int i, float2 v) const {
+    float2 u = make_float2(0.f, 0.f);
+    if (valid && i < n_bins) u = mag_grad(make_float2(v.x, -v.y), __ldg(gm + i));
+    buf[pad(i)] = u;
   }
-  __syncthreads();
-  fft<P, true>(buf, tw, t, LoadConjBuf{buf}, StoreFrameGrad{d, reinterpret_cast<const float2*>(win), valid});
+};
+
+// Bluestein backward, end of the third FFT: conj(U[i] D[i]).
+struct StoreMulConj {
+  float2* buf;
+  const float2* __restrict__ d;
+  __device__ __forceinline__ void operator()(int i, float2 v) const {
+    const float2 w = __ldg(d + i);
+    buf[pad(i)] = make_float2(v.x * w.x - v.y * w.y, -(v.x * w.y + v.y * w.x));
+  }
+};
+
+// Bluestein backward, end of the fourth FFT: d frame[n] = w[n] Re(c[n] G[n])
+// for n < N, into the frame's buffer read as unpadded floats.
+struct StoreChirpGrad {
+  float* d;
+  const float* __restrict__ win;
+  const float2* __restrict__ chirp;
+  int n_fft;
+  __device__ __forceinline__ void operator()(int n, float2 v) const {
+    if (n >= n_fft) return;
+    const float2 c = __ldg(chirp + n);
+    d[n] = __ldg(win + n) * (c.x * v.x - c.y * v.y);
+  }
+};
+
+// The gradient of one frame, d frame[n] for n < N, left in `buf` as
+// unpadded floats (see the head of the file).  x: the frame's first sample;
+// gm: its n_bins upstream gradients.  An invalid frame reads zeros and
+// leaves garbage.  Every thread of the block calls it (barriers); it ends
+// with one.  Not inlined: as a call its transforms get the registers to
+// themselves, where inlined they shared them with the segment's state and
+// spilled, and ran slower on an H100 (PERF.md §6).
+template <bool kBluestein, int P>
+__device__ __noinline__ void frame_grad(float2* buf, const float* __restrict__ x,
+                                           const float* __restrict__ win, const float2* __restrict__ tw,
+                                           const float2* __restrict__ table_a,
+                                           const float2* __restrict__ table_b,
+                                           const float* __restrict__ gm, int n_fft, int t, bool valid) {
+  constexpr int T = frame_threads<P>();
+  if constexpr (!kBluestein) {
+    fft<P, false>(buf, tw, t, LoadPairs{x, win, valid}, StoreBuf{buf});
+    // Pairs (k, P - k), k <= P/2: each thread reads and writes only its own
+    // pair's two slots, so the in-place update needs no barrier inside.
+    for (int k = t; k <= P / 2; k += T) {
+      const int j = P - k;
+      const float2 zk = buf[pad(k)];
+      const float2 zj = buf[pad(j & (P - 1))];
+      const float2 ak = __ldg(table_a + k), aj = __ldg(table_a + j);
+      const float2 hk = mag_grad(split_bin(zk, zj, ak), __ldg(gm + k));
+      const float2 hj = mag_grad(split_bin(zj, zk, aj), __ldg(gm + j));
+      if (k == 0) {
+        buf[pad(0)] = make_float2(hk.x + hj.x, hk.x - hj.x);
+        continue;
+      }
+      // e^{+2 pi i k/N} = conj(table_a[k])
+      const float2 ek = make_float2(0.5f * (hk.x + hj.x), 0.5f * (hk.y - hj.y));
+      const float2 ok = cmul(make_float2(0.5f * (hk.x - hj.x), 0.5f * (hk.y + hj.y)), make_float2(ak.x, -ak.y));
+      buf[pad(k)] = make_float2(ek.x - ok.y, ek.y + ok.x);  // E + i O
+      if (j != k) {
+        const float2 ej = make_float2(ek.x, -ek.y);  // (H[j] + conj H[k])/2 = conj E[k]
+        const float2 oj =
+            cmul(make_float2(0.5f * (hj.x - hk.x), 0.5f * (hj.y + hk.y)), make_float2(aj.x, -aj.y));
+        buf[pad(j)] = make_float2(ej.x - oj.y, ej.y + oj.x);
+      }
+    }
+    __syncthreads();
+    fft<P, true>(buf, tw, t, LoadConjBuf{buf}, StoreFrameGrad{buf, reinterpret_cast<const float2*>(win)});
+  } else {
+    fft<P, false>(buf, tw, t, LoadChirp{x, win, table_a, n_fft, valid}, StoreConjMul{buf, table_b});
+    fft<P, true>(buf, tw, t, LoadBuf{buf}, StoreChirpMagGrad{buf, gm, n_fft / 2 + 1, valid});
+    fft<P, true>(buf, tw, t, LoadBuf{buf}, StoreMulConj{buf, table_b});
+    fft<P, true>(buf, tw, t, LoadBuf{buf}, StoreChirpGrad{reinterpret_cast<float*>(buf), win, table_a, n_fft});
+  }
 }
 
-// Kernel 2 of the backward: d ext[b, j] = sum over the frames f covering j,
-// in ascending order, of d frame[b, f, j - f hop].
-__global__ void __launch_bounds__(kBlockThreads)
-stft_bwd_ola_kernel(const float* __restrict__ grad_frames, float* __restrict__ grad_ext,
-                    long long total, int ext_len, int n_fft, int hop, int max_frames) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBlockThreads + threadIdx.x;
-  if (i >= total) return;
-  const int b = static_cast<int>(i / ext_len);
-  const int j = static_cast<int>(i - static_cast<long long>(b) * ext_len);
-  const int f_lo = j >= n_fft ? (j - n_fft) / hop + 1 : 0;
-  const int f_hi = min(max_frames - 1, j / hop);
-  const float* src = grad_frames + static_cast<size_t>(b) * max_frames * n_fft + j;
-  float acc = 0.f;
-  for (int f = f_lo; f <= f_hi; ++f) acc += __ldg(src + static_cast<long long>(f) * (n_fft - hop));
-  grad_ext[i] = acc;
+// Resident blocks per SM of the backward, chosen by timing on an H100
+// (PERF.md §6): the forward's, except that the split path runs best
+// at 3 blocks (80 registers; at 64 the segment's bookkeeping beside the
+// FFT spills, at 128 two blocks leave the SM idle).
+template <int P, bool kBluestein>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return kBluestein || block_threads<P>() > kBlockThreads ? min_blocks<P, kBluestein>() : 3;
+}
+
+// The backward: block blockIdx.x = b * n_seg + s owns samples
+// [s S hop, (s+1) S hop) of row b (the last segment: to ext_len), S =
+// seg_frames.  Dynamic shared memory: the frames' FFT buffers, then a ring
+// of ring_len floats (a power of two >= max(N, threads)) holding the
+// samples not yet written.  Sample j is added to, written out and cleared
+// by thread j mod threads alone, in its slot j mod ring_len: after frame f
+// every sample below (f+1) hop is final, and a slot is reused only by a
+// sample at least N later, which no frame before the next one reaches.
+// Same threads per frame and frames per block as the forward; P = N/2 on
+// the split path, M for Bluestein.
+template <bool kBluestein, int kLog2P>
+__global__ void __launch_bounds__(block_threads<1 << kLog2P>(), bwd_min_blocks<1 << kLog2P, kBluestein>())
+stft_bwd_kernel(const float* __restrict__ ext, const float* __restrict__ win,
+                const float2* __restrict__ tw, const float2* __restrict__ table_a,
+                const float2* __restrict__ table_b, const float* __restrict__ grad_mag,
+                float* __restrict__ grad_ext, int ext_len, int n_fft, int hop, int max_frames,
+                int seg_frames, int n_seg, int ring_len) {
+  constexpr int P = 1 << kLog2P;
+  constexpr int T = frame_threads<P>();
+  constexpr int kThreads = block_threads<P>();
+  constexpr int kFrames = kThreads / T;
+  constexpr int kBufLen = P + ((P - 1) >> 4);
+  extern __shared__ float2 smem[];
+  float* ring = reinterpret_cast<float*>(smem + kFrames * kBufLen);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / n_seg;
+  const int s = blockIdx.x - b * n_seg;
+  const int n_bins = n_fft / 2 + 1;
+  const int j0 = s * seg_frames * hop;
+  const int j1 = s == n_seg - 1 ? ext_len : j0 + seg_frames * hop;
+  // frames covering [j0, j1): f hop <= j < f hop + N
+  const int f_begin = j0 >= n_fft ? (j0 - n_fft) / hop + 1 : 0;
+  const int f_end = min(max_frames, (s + 1) * seg_frames);
+  float* out = grad_ext + static_cast<size_t>(b) * ext_len;
+
+  for (int i = tid; i < ring_len; i += kThreads) ring[i] = 0.f;
+  int written = j0;  // samples of [j0, written) are out
+  for (int f0 = f_begin; f0 < f_end; f0 += kFrames) {
+    const int fl = tid / T;
+    const int fv = min(f0 + fl, f_end - 1);
+    frame_grad<kBluestein, P>(smem + fl * kBufLen,
+                              ext + static_cast<size_t>(b) * ext_len + static_cast<size_t>(fv) * hop, win, tw,
+                              table_a, table_b, grad_mag + (static_cast<size_t>(b) * max_frames + fv) * n_bins,
+                              n_fft, tid % T, f0 + fl < f_end);
+    const int f_last = min(f0 + kFrames, f_end) - 1;
+    for (int f = f0; f <= f_last; ++f) {  // ascending: each sample's order
+      const float* d = reinterpret_cast<const float*>(smem + (f - f0) * kBufLen);
+      const int lo = max(j0, f * hop), hi = min(j1, f * hop + n_fft);
+      for (int j = lo + ((tid - lo) & (kThreads - 1)); j < hi; j += kThreads) {
+        ring[j & (ring_len - 1)] += d[j - f * hop];
+      }
+      const int done = f == f_end - 1 ? j1 : min(j1, (f + 1) * hop);
+      for (int j = written + ((tid - written) & (kThreads - 1)); j < done; j += kThreads) {
+        float& slot = ring[j & (ring_len - 1)];
+        out[j] = slot;
+        slot = 0.f;
+      }
+      written = max(written, done);
+    }
+    __syncthreads();  // the next round overwrites the buffers
+  }
 }
 
 using KernelFn = void (*)(const float*, const float*, const float2*, const float2*, const float2*,
                           float*, int, int, int, int, int);
-using BwdFn = void (*)(const float*, const float*, const float2*, const float2*, const float*,
-                       float*, int, int, int, int, int);
+using BwdFn = void (*)(const float*, const float*, const float2*, const float2*, const float2*,
+                       const float*, float*, int, int, int, int, int, int, int);
 
 template <bool kBluestein, int... L>
 std::array<KernelFn, sizeof...(L)> kernel_table(std::integer_sequence<int, L...>) {
   return {{&stft_fft_kernel<kBluestein, L>...}};
 }
 
-template <int... L>
+template <bool kBluestein, int... L>
 std::array<BwdFn, sizeof...(L)> bwd_table(std::integer_sequence<int, L...>) {
-  return {{&stft_bwd_frames_kernel<L>...}};
+  return {{&stft_bwd_kernel<kBluestein, L>...}};
 }
 
 // Split: P = N/2 <= 2048 (log2 P <= 11); Bluestein: M <= 8192 (log2 M <= 13).
 const auto kSplitKernels = kernel_table<false>(std::make_integer_sequence<int, 12>{});
 const auto kBluesteinKernels = kernel_table<true>(std::make_integer_sequence<int, 14>{});
-const auto kBwdKernels = bwd_table(std::make_integer_sequence<int, 12>{});
+const auto kBwdSplitKernels = bwd_table<false>(std::make_integer_sequence<int, 12>{});
+const auto kBwdBluesteinKernels = bwd_table<true>(std::make_integer_sequence<int, 14>{});
 
 // Frames per block and dynamic shared memory of a P-point frame kernel.
 void frame_launch_shape(int fft_len, int* frames_per_block, size_t* smem) {
@@ -513,6 +630,86 @@ void frame_launch_shape(int fft_len, int* frames_per_block, size_t* smem) {
   *frames_per_block = T >= kBlockThreads ? 1 : kBlockThreads / T;
   const int buf_len = fft_len + ((fft_len - 1) >> 4);
   *smem = static_cast<size_t>(*frames_per_block) * buf_len * sizeof(float2);
+}
+
+// The transform of N and its checks: fft_len must be N/2 for a power-of-two
+// N >= 2 and the next power of two >= N + N/2 otherwise.
+bool fft_shape(int n_fft, int fft_len, bool* split, int* log2_len) {
+  *split = n_fft >= 2 && (n_fft & (n_fft - 1)) == 0;
+  int want = *split ? n_fft / 2 : 1;
+  while (!*split && want < n_fft + n_fft / 2) want <<= 1;
+  *log2_len = 0;
+  while ((1 << *log2_len) < want) ++*log2_len;
+  return fft_len == want;
+}
+
+bool frames_fit(int n_fft, int hop, int max_frames, int ext_len) {
+  return n_fft > 0 && n_fft <= kMaxFft && hop > 0 && max_frames > 0 &&
+         static_cast<long long>(ext_len) >= static_cast<long long>(max_frames - 1) * hop + n_fft;
+}
+
+// A backward launch's kernel, threads, frames per block, ring and dynamic
+// shared memory (the frames' buffers, then the ring: at most 86 KB, for
+// M = 8192) for N.
+struct BwdShape {
+  BwdFn kernel;
+  int threads, frames_per_block, ring_len;
+  size_t smem;
+};
+
+BwdShape bwd_shape(bool split, int log2_len, int n_fft, int fft_len) {
+  BwdShape b;
+  b.kernel = split ? kBwdSplitKernels[log2_len] : kBwdBluesteinKernels[log2_len];
+  frame_launch_shape(fft_len, &b.frames_per_block, &b.smem);
+  b.threads = (fft_len >= 16 ? fft_len / 16 : 1) * b.frames_per_block;
+  b.ring_len = 1;
+  while (b.ring_len < std::max(n_fft, b.threads)) b.ring_len <<= 1;
+  b.smem += sizeof(float) * b.ring_len;
+  return b;
+}
+
+// S for a backward launch: the least
+//   rounds(S) x ceil(blocks(S) / resident blocks),
+// rounds(S) = ceil(min(S + halo, max_frames) / frames per block) and
+// blocks(S) = batch x ceil(max_frames / S), the halo ceil(N/hop) - 1: a
+// block's rounds, the halo's recompute included, times the waves of blocks.
+// Ties go to the larger S (less recompute).  Cached per shape and device.
+cudaError_t segment_frames(const BwdShape& sh, int batch, int n_fft, int hop, int max_frames, int* seg_frames) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, int, int>, int> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(dev, batch, n_fft, hop, max_frames);
+  std::lock_guard<std::mutex> lock(mu);
+  auto hit = cache.find(key);
+  if (hit == cache.end()) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(sh.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(sh.smem))) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sh.kernel, sh.threads, sh.smem)) !=
+            cudaSuccess) {
+      return err;
+    }
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    const long long slots = static_cast<long long>(sms) * per_sm;
+    const int halo = (n_fft - 1) / hop;
+    int best = 1;
+    long long best_cost = LLONG_MAX;
+    for (int s = 1; s <= max_frames; ++s) {
+      const long long rounds = (std::min(s + halo, max_frames) + sh.frames_per_block - 1) / sh.frames_per_block;
+      const long long blocks = static_cast<long long>(batch) * ((max_frames + s - 1) / s);
+      const long long cost = rounds * ((blocks + slots - 1) / slots);
+      if (cost <= best_cost) {
+        best_cost = cost;
+        best = s;
+      }
+    }
+    hit = cache.emplace(key, best).first;
+  }
+  *seg_frames = hit->second;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -529,21 +726,14 @@ extern "C" int ssr_stft_magnitude(const float* ext, const float* win, const floa
                                   const float* table_a, const float* table_b, float* out, int batch,
                                   int ext_len, int n_fft, int hop, int max_frames, int fft_len,
                                   void* stream) {
-  if (batch <= 0 || n_fft <= 0 || n_fft > kMaxFft || hop <= 0 || max_frames <= 0 ||
-      static_cast<long long>(ext_len) < static_cast<long long>(max_frames - 1) * hop + n_fft) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool split = n_fft >= 2 && (n_fft & (n_fft - 1)) == 0;
-  int want = split ? n_fft / 2 : 1;
-  while (!split && want < n_fft + n_fft / 2) want <<= 1;
-  if (fft_len != want || twiddle == nullptr || table_a == nullptr ||
-      (!split && table_b == nullptr)) {
+  bool split;
+  int log2P;
+  if (batch <= 0 || !frames_fit(n_fft, hop, max_frames, ext_len) || !fft_shape(n_fft, fft_len, &split, &log2P) ||
+      twiddle == nullptr || table_a == nullptr || (!split && table_b == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_frames = static_cast<long long>(batch) * max_frames;
   if (n_frames > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int log2P = 0;
-  while ((1 << log2P) < fft_len) ++log2P;
   const int T = fft_len >= 16 ? fft_len / 16 : 1;
   int frames_per_block;
   size_t smem;
@@ -563,52 +753,61 @@ extern "C" int ssr_stft_magnitude(const float* ext, const float* win, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-// The gradient of sum(grad_mag * |STFT|) with respect to ext, for a
-// power-of-two N >= 2 (the split path; every other N returns
-// cudaErrorNotSupported).  ext, win, twiddle and table_a as for
-// ssr_stft_magnitude (fft_len = N/2); grad_mag [batch, max_frames, N/2 + 1]
-// f32; grad_frames: scratch of batch * max_frames * N f32; grad_ext [batch,
-// ext_len] f32, every sample written.  win must be 8-byte aligned.  Launches
-// both kernels on `stream` and returns cudaGetLastError().
-extern "C" int ssr_stft_magnitude_backward(const float* ext, const float* win, const float* twiddle,
-                                           const float* table_a, const float* grad_mag,
-                                           float* grad_frames, float* grad_ext, int batch,
-                                           int ext_len, int n_fft, int hop, int max_frames,
-                                           int fft_len, void* stream) {
-  if (batch <= 0 || n_fft <= 0 || n_fft > kMaxFft || hop <= 0 || max_frames <= 0 ||
-      static_cast<long long>(ext_len) < static_cast<long long>(max_frames - 1) * hop + n_fft) {
+// The frames per segment S that the backward takes for this shape on the
+// current device when the caller leaves it (see segment_frames), into
+// *seg_frames.  Returns a CUDA error code; a failed CUDA call's error is
+// cleared, so no later launch reports it.
+extern "C" int ssr_stft_magnitude_backward_plan(int batch, int ext_len, int n_fft, int hop, int max_frames,
+                                                int fft_len, int* seg_frames) {
+  bool split;
+  int log2_len;
+  if (batch <= 0 || !frames_fit(n_fft, hop, max_frames, ext_len) || !fft_shape(n_fft, fft_len, &split, &log2_len)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_fft < 2 || (n_fft & (n_fft - 1)) != 0) return static_cast<int>(cudaErrorNotSupported);
-  if (fft_len != n_fft / 2 || twiddle == nullptr || table_a == nullptr ||
+  const cudaError_t err =
+      segment_frames(bwd_shape(split, log2_len, n_fft, fft_len), batch, n_fft, hop, max_frames, seg_frames);
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// The gradient of sum(grad_mag * |STFT|) with respect to ext, for any
+// N <= 4096, in one launch.  ext, win, twiddle, table_a, table_b and
+// fft_len as for ssr_stft_magnitude; grad_mag [batch, max_frames, N/2 + 1]
+// f32; grad_ext [batch, ext_len] f32, every sample written.  seg_frames: S,
+// the frames per segment (see the head of the file), <= 0 to leave it to
+// segment_frames; the result does not depend on it.  win must be 8-byte
+// aligned.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int ssr_stft_magnitude_backward(const float* ext, const float* win, const float* twiddle,
+                                           const float* table_a, const float* table_b,
+                                           const float* grad_mag, float* grad_ext, int batch,
+                                           int ext_len, int n_fft, int hop, int max_frames,
+                                           int fft_len, int seg_frames, void* stream) {
+  bool split;
+  int log2_len;
+  if (batch <= 0 || !frames_fit(n_fft, hop, max_frames, ext_len) || !fft_shape(n_fft, fft_len, &split, &log2_len) ||
+      twiddle == nullptr || table_a == nullptr || (!split && table_b == nullptr) ||
       (reinterpret_cast<size_t>(win) & 7) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_frames = static_cast<long long>(batch) * max_frames;
-  if (n_frames > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int log2P = 0;
-  while ((1 << log2P) < fft_len) ++log2P;
-  const int T = fft_len >= 16 ? fft_len / 16 : 1;
-  int frames_per_block;
-  size_t smem;
-  frame_launch_shape(fft_len, &frames_per_block, &smem);
-  const long long blocks = (n_frames + frames_per_block - 1) / frames_per_block;
-  const BwdFn kernel = kBwdKernels[log2P];
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (seg_frames <= 0) {
+    const int err = ssr_stft_magnitude_backward_plan(batch, ext_len, n_fft, hop, max_frames, fft_len, &seg_frames);
+    if (err != cudaSuccess) return err;
+  }
+  seg_frames = std::min(seg_frames, max_frames);
+  const BwdShape sh = bwd_shape(split, log2_len, n_fft, fft_len);
+  const long long n_seg = (max_frames + seg_frames - 1) / seg_frames;
+  const long long blocks = static_cast<long long>(batch) * n_seg;
+  if (blocks > INT_MAX || static_cast<long long>(max_frames + seg_frames) * hop > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (sh.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(sh.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sh.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<static_cast<unsigned>(blocks), T * frames_per_block, smem, s>>>(
+  sh.kernel<<<static_cast<unsigned>(blocks), sh.threads, sh.smem, static_cast<cudaStream_t>(stream)>>>(
       ext, win, reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(table_a),
-      grad_mag, grad_frames, ext_len, n_fft, hop, max_frames, static_cast<int>(n_frames));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(batch) * ext_len;
-  const long long ola_blocks = (total + kBlockThreads - 1) / kBlockThreads;
-  if (ola_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  stft_bwd_ola_kernel<<<static_cast<unsigned>(ola_blocks), kBlockThreads, 0, s>>>(
-      grad_frames, grad_ext, total, ext_len, n_fft, hop, max_frames);
+      reinterpret_cast<const float2*>(table_b), grad_mag, grad_ext, ext_len, n_fft, hop, max_frames, seg_frames,
+      static_cast<int>(n_seg), sh.ring_len);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,16 @@ chirp-z convolution.  `_fft_plan` builds each path's tables.
 `stft_magnitude_kernel` launches the kernel for a CUDA tensor and takes
 the plain version for a CPU tensor; it never falls back from the card.
 A CUDA `ext` that requires a gradient goes through `StftMagnitudeFn`,
-whose backward is the backward kernel of the same source (power-of-two
-n_fft only; a Bluestein n_fft raises NotImplementedError).  The JAX
-package has no such kernel: XLA differentiates its |STFT|.
+whose backward is the backward kernel of the same source, for every
+n_fft <= 4096 in one launch: each block recomputes the spectra of the
+frames over a segment of output samples (the forward's transform, then
+its inverse), overlap-adds them in shared memory in ascending frame order
+and writes the segment once (the frames that start before the segment
+are recomputed by both blocks they touch).  Nothing but the output
+reaches device memory and a row's gradient does not depend on its batch
+or on the segment size.  Its bound is ext and grad_mag read once and the
+gradient written once.  The JAX package has no such kernel: XLA
+differentiates its |STFT|.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ class FftPlan(NamedTuple):
     table_a: split e^{-2 pi i k / n_fft} for k <= n_fft/2, or the chirp
     c[n] = e^{-i pi (n^2 mod 2 n_fft) / n_fft} for n < n_fft;
     table_b: Bluestein only, conj(FFT(b)) / fft_len for the wrapped
-    b[m] = conj(c[|m|]), m in (-n_fft, n_fft/2]."""
+    b[m] = conj(c[|m|]), m in (-n_fft, n_fft/2]; the backward's inverse
+    chirp-z multiplies by it too (its kernel's FFT is conj FFT(b))."""
 
     kind: str
     fft_len: int
@@ -208,9 +216,24 @@ def _backward_launcher():
     from ssr_eval_tpu_torch.dsp import _build
 
     fn = _build.library("stft_magnitude").ssr_stft_magnitude_backward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _backward_plan(batch: int, ext_len: int, n_fft: int, hop: int, max_frames: int) -> int:
+    """S, the frames per segment that the backward kernel takes for this
+    shape on the current CUDA device (chip_smoke.py reports it)."""
+    from ssr_eval_tpu_torch.dsp import _build
+
+    fn = _build.library("stft_magnitude").ssr_stft_magnitude_backward_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    s = ctypes.c_int(0)
+    rc = fn(batch, ext_len, n_fft, hop, max_frames, _fft_plan(n_fft).fft_len, ctypes.byref(s))
+    if rc != 0:
+        raise RuntimeError(f"stft_magnitude backward plan failed: CUDA error {rc}")
+    return s.value
 
 
 def stft_magnitude_backward_kernel(
@@ -220,9 +243,16 @@ def stft_magnitude_backward_kernel(
 
     ext and window as for `stft_magnitude_kernel`; grad_mag [..., max_frames,
     n_fft//2 + 1] float32.  Returns ext's shape.  On a CUDA tensor it
-    launches the backward kernel (a power-of-two n_fft; any other raises
-    NotImplementedError); on a CPU tensor it computes the plain version.
+    launches the backward kernel once, for any n_fft <= 4096; on a CPU
+    tensor it computes the plain version.
     """
+    return _backward(ext, grad_mag, n_fft, hop, max_frames, window, 0)
+
+
+def _backward(ext, grad_mag, n_fft, hop, max_frames, window, seg_frames):
+    """`stft_magnitude_backward_kernel` with the frames per segment S of a
+    block forced (0: the kernel's own choice).  The result is the same for
+    every S; the card tests and chip_smoke.py force S to check that."""
     _check(ext, n_fft, hop, max_frames, window)
     n_bins = n_fft // 2 + 1
     want = (*ext.shape[:-1], max_frames, n_bins)
@@ -235,23 +265,17 @@ def stft_magnitude_backward_kernel(
         return stft_magnitude_backward_plain(ext, grad_mag, n_fft, hop, max_frames, window)
     if ext.device.type != "cuda":
         raise ValueError(f"stft_magnitude_backward_kernel runs on cuda or cpu, not {ext.device}")
-    if _fft_plan(n_fft).kind != "split":
-        raise NotImplementedError(
-            f"the |STFT| backward kernel takes a power-of-two n_fft; {n_fft} goes through "
-            "Bluestein, whose backward is not written yet (ROADMAP.md)"
-        )
     fn = _backward_launcher()
     rows = ext.reshape(-1, ext.shape[-1])
     gm = grad_mag.contiguous()
-    frames = torch.empty(rows.shape[0] * max_frames * n_fft, device=ext.device, dtype=torch.float32)
     out = torch.empty_like(rows)
-    fft_len, tw, tab_a, _ = _tables(n_fft, ext.device)
+    fft_len, tw, tab_a, tab_b = _tables(n_fft, ext.device)
     with torch.cuda.device(ext.device):
         stream = torch.cuda.current_stream(ext.device).cuda_stream
         rc = fn(
-            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(), gm.data_ptr(),
-            frames.data_ptr(), out.data_ptr(),
-            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, stream,
+            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(),
+            None if tab_b is None else tab_b.data_ptr(), gm.data_ptr(), out.data_ptr(),
+            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, seg_frames, stream,
         )
     if rc != 0:
         raise RuntimeError(f"stft_magnitude backward kernel launch failed: CUDA error {rc}")

@@ -28,6 +28,13 @@ float64 NumPy (`metrics.host_reference`) over the device-produced estimate
 and ground-truth waveforms, as the JAX engine does; mp3 and host-testee
 scores stay on the device.
 
+Keywords follow the JAX package's engine: `mesh` must be None (one card;
+data parallelism is ROADMAP.md 1.15), and `profile_dir` (or
+SSR_EVAL_TPU_PROFILE) writes a torch.profiler trace of each
+`evaluate_files` call.  The JAX engine's XLA program-shape knobs
+(`infer_fold_max`, `mega_batches`, `wire_codec`, `spec_unroll`,
+`spec_flat`, `spec_single`) have no counterpart: the port runs eagerly.
+
 Batches are padded to a fixed size with copies of their first row; padding
 rows are dropped at collation.  Every per-utterance computation is
 independent of the other rows of its batch, so a file scores the same alone
@@ -65,7 +72,7 @@ from ssr_eval_tpu_torch.metrics.kernels import (
     ssim_target_moments,
 )
 from ssr_eval_tpu_torch.utils.bucket import bucket_length
-from ssr_eval_tpu_torch.utils.profiling import StageTimers
+from ssr_eval_tpu_torch.utils.profiling import StageTimers, device_trace
 
 METRIC_KEYS = ("lsd", "log_sispec", "sispec", "ssim")
 
@@ -85,14 +92,20 @@ class EvalEngine:
         testee,
         batch_size=4,
         *,
+        mesh=None,
         device=None,
         save_processed_result=False,
         test_name="test",
         io_workers=8,
+        profile_dir=None,
         journal=None,
         input_res_type="polyphase",
         metrics_backend="device",
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "EvalEngine runs on one card; data parallelism over a device mesh is ROADMAP.md 1.15"
+            )
         self.device = resolve_device(device)
         self.specs = list(specs)
         # Device specs grouped by family key (first-appearance order); an
@@ -112,6 +125,7 @@ class EvalEngine:
         self.save_processed_result = save_processed_result
         self.test_name = test_name
         self.io_workers = io_workers
+        self.profile_dir = profile_dir
         self.journal = journal
         if input_res_type not in ("polyphase", "kaiser_best"):
             raise ValueError(f"input_res_type must be 'polyphase' or 'kaiser_best', got {input_res_type!r}")
@@ -366,7 +380,8 @@ class EvalEngine:
         results = {p: {} for p in paths}
         codec_ex = ThreadPoolExecutor(max_workers=self.io_workers) if self.mp3_specs else None
         try:
-            self._evaluate_stream(paths, results, codec_ex)
+            with device_trace(self.profile_dir):
+                self._evaluate_stream(paths, results, codec_ex)
         except BaseException:
             # Cancel queued codec jobs; in-flight ones finish and are dropped.
             if codec_ex is not None:

@@ -7,9 +7,11 @@ results-JSON naming follow the reference; the execution underneath is
 `ssr_eval_tpu_torch.harness.engine.EvalEngine` on one device.
 
 Extras (keyword-only, defaulted so reference call sites work unchanged):
-`device` (None = the CUDA card; "cpu" runs the plain PyTorch path),
-`batch_size`, `auto_download`, `input_res_type`, `metrics_backend`
-("device", or "host_float64" for the float64 host recomputation).  Every
+the JAX package's helper keywords, `mesh` (None only: one card; data
+parallelism is ROADMAP.md 1.15), `batch_size`, `auto_download`,
+`input_res_type`, `metrics_backend` ("device", or "host_float64" for the
+float64 host recomputation) and `evaluate(multihost=...)`, plus `device`
+(None = the CUDA card; "cpu" runs the plain PyTorch path).  Every
 degradation family runs: fft, the four IIR designs, subsampling and mp3
 (the last needs libmp3lame, sox or ffmpeg, and raises
 `CodecUnavailableError` without one).
@@ -32,6 +34,10 @@ from ssr_eval_tpu_torch.utils.common import dict_mean, write_json
 VCTK_URL = "https://zenodo.org/record/6370601/files/vctk_test_48k.tar?download=1"
 
 
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
 class SSR_Eval_Helper:
     def __init__(
         self,
@@ -47,6 +53,7 @@ class SSR_Eval_Helper:
         setting_mp3_compression=None,
         save_processed_result=False,
         *,
+        mesh=None,
         device=None,
         batch_size=4,
         auto_download=True,
@@ -86,6 +93,7 @@ class SSR_Eval_Helper:
             evaluation_sr=self.evaluationset_sr,
             testee=testee,
             batch_size=batch_size,
+            mesh=mesh,
             device=device,
             save_processed_result=save_processed_result,
             test_name=test_name,
@@ -137,14 +145,30 @@ class SSR_Eval_Helper:
 
         return [f for f in os.listdir(path) if eligible(f)]
 
-    def evaluate(self, limit_test_nums=-1, limit_test_speaker=-1, resume=False, verbose=True):
+    def evaluate(self, limit_test_nums=-1, limit_test_speaker=-1, resume=False, verbose=True, multihost="auto"):
         """Run the sweep.  Reference-compatible signature plus:
 
         resume: skip files whose every spec key already exists in the
             incremental journal `results/<test_name>.partial.jsonl`
             (written as batches complete).
         verbose: per-speaker progress + a throughput summary.
+        multihost: the JAX package's keyword.  "auto" means a
+            torch.distributed process group of more than one process; True
+            forces the multi-process path, False disables it.  In one
+            process both paths are the same run (one JSON, the journal at its
+            base path).  Sharding files over several processes is ROADMAP.md
+            1.15: until then a multi-process run raises NotImplementedError
+            rather than have every rank score every file.
         """
+        if multihost not in ("auto", True, False):
+            raise ValueError(f"multihost must be 'auto', True or False, got {multihost!r}")
+        world = torch.distributed.get_world_size() if _distributed() else 1
+        use_multihost = multihost if multihost != "auto" else world > 1
+        if use_multihost and world > 1:
+            raise NotImplementedError(
+                f"evaluate(multihost={multihost!r}) in a process group of {world}: sharding the "
+                "sweep over processes is ROADMAP.md 1.15"
+            )
         final_result = {}
         result_cache = {}
         averaged_result = {}

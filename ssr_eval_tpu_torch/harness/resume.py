@@ -32,6 +32,15 @@ class ResultJournal:
         self._fh.close()
 
 
+def process_journal_path(base_path: str, process_index: int, process_count: int) -> str:
+    """Per-process journal path for multi-process runs (a single process
+    keeps the base path so existing journals stay resumable)."""
+    if process_count <= 1:
+        return base_path
+    root, ext = os.path.splitext(base_path)
+    return f"{root}.p{process_index}{ext}"
+
+
 def load_partial(path: str) -> dict:
     """-> {file_path: {key: metrics}} from the journal at `path` (a torn
     final line from a crash is skipped)."""

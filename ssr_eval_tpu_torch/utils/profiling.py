@@ -1,9 +1,17 @@
-"""Wall-clock accounting per pipeline stage, exposed by the engine as
-``engine.stats`` and summarized with utterances per second."""
+"""Tracing and throughput accounting.
+
+- `StageTimers`: wall-clock accounting per pipeline stage, exposed by the
+  engine as ``engine.stats`` and summarized with utterances per second.
+- `device_trace`: a `torch.profiler` trace (CPU activities, and CUDA ones
+  where a card is present) written into a directory as a Chrome/TensorBoard
+  trace; enabled with ``EvalEngine(..., profile_dir=...)`` or
+  ``SSR_EVAL_TPU_PROFILE=<dir>``.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -38,3 +46,22 @@ class StageTimers:
                 for k, v in sorted(self.seconds.items())
             },
         }
+
+
+@contextlib.contextmanager
+def device_trace(profile_dir: str | None):
+    """A torch.profiler trace of the block into `profile_dir` (or the
+    directory SSR_EVAL_TPU_PROFILE names); nothing when neither is set."""
+    profile_dir = profile_dir or os.environ.get("SSR_EVAL_TPU_PROFILE")
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield

@@ -15,7 +15,9 @@ max of the CPU's with silent frames at exactly sqrt(eps); a small-width
 NVSR testee's waveform on the card within 1e-4 of max|CPU| (cuDNN's fp32
 convolutions against the CPU's, TF32 off); the |STFT| backward kernel
 within 1e-5 of max|grad| of its plain version (torch autograd) and of a
-float64 autograd (both float32 FFTs round at ~1e-6 of max).
+float64 autograd (both float32 FFTs round at ~1e-6 of max), a row's
+gradient bit-identical alone and inside a batch, whatever the frames per
+segment.
 """
 
 import os
@@ -28,6 +30,7 @@ from scipy.signal import sosfiltfilt as scipy_sff
 from ssr_eval_tpu_torch.degrade import apply as deg
 
 from ssr_eval_tpu_torch.degrade.plan import expand_settings
+from ssr_eval_tpu_torch.dsp import stft_kernel
 from ssr_eval_tpu_torch.dsp.spectral import window_tensor
 from ssr_eval_tpu_torch.dsp.stft_kernel import (
     stft_magnitude_backward_kernel,
@@ -275,13 +278,19 @@ def test_nvsr_infer_batch_leaves_no_graph_on_card(card):
     [
         (2048, 441, 4, 36), (2048, 441, 3, 37), (512, 128, 4, 37), (4096, 1024, 2, 9),
         (2, 1, 3, 5), (32, 7, 2, 7), (256, 300, 2, 5),
+        # Bluestein: the 48 kHz and 16 kHz metric STFTs, N = 1, a small N and
+        # the 8192-point transforms (2732 and 4095)
+        (2229, 480, 4, 36), (743, 160, 3, 37), (1, 1, 3, 5), (17, 5, 2, 9), (2732, 500, 2, 5),
+        (4095, 1000, 2, 5),
+        # hops far below N/4: halos of 31 and 44 frames
+        (4096, 128, 2, 40), (2229, 50, 2, 60),
     ],
 )
 def test_cuda_backward_kernel_matches_plain_and_float64(card, n_fft, hop, rows, mf):
     g = torch.Generator().manual_seed(n_fft + mf)
     ext = (0.1 * torch.randn(rows, (mf - 1) * hop + n_fft + 13, generator=g)).to(card)
     gm = torch.randn(rows, mf, n_fft // 2 + 1, generator=g).to(card)
-    win = window_tensor(n_fft, n_fft, card)
+    win = window_tensor(n_fft, n_fft, card) if n_fft > 1 else torch.ones(1, device=card)  # hann(1) = 0
     before = stft_magnitude_backward_kernel.launches
     got = stft_magnitude_backward_kernel(ext, gm, n_fft, hop, mf, win)
     torch.cuda.synchronize()
@@ -322,9 +331,41 @@ def test_cuda_ext_requiring_grad_gets_the_backward_kernel(card):
 
 
 @pytest.mark.cuda
-def test_cuda_backward_raises_for_bluestein(card):
-    win = window_tensor(2229, 2229, card)
-    ext = torch.randn(1, 3000, device=card, requires_grad=True)
-    mag = stft_magnitude_kernel(ext, 2229, 480, 2, win)
-    with pytest.raises(NotImplementedError, match="Bluestein"):
-        mag.sum().backward()
+@pytest.mark.parametrize("n_fft,hop", [(2229, 480), (743, 160)])
+def test_cuda_bluestein_backward_through_function(card, n_fft, hop):
+    """A Bluestein n_fft's gradient through StftMagnitudeFn: one backward
+    launch per backward(), within 1e-4 of max of the plain version and 1e-5
+    of a float64 autograd."""
+    mf = 21
+    g = torch.Generator().manual_seed(n_fft)
+    ext = (0.1 * torch.randn(2, (mf - 1) * hop + n_fft + 5, generator=g)).to(card)
+    gm = torch.randn(2, mf, n_fft // 2 + 1, generator=g).to(card)
+    win = window_tensor(n_fft, n_fft, card)
+    e = ext.clone().requires_grad_(True)
+    mag = stft_magnitude_kernel(e, n_fft, hop, mf, win)
+    assert mag.grad_fn is not None and "StftMagnitudeFn" in type(mag.grad_fn).__name__
+    before = stft_magnitude_backward_kernel.launches
+    mag.backward(gm)
+    torch.cuda.synchronize()
+    assert stft_magnitude_backward_kernel.launches == before + 1
+    want = stft_magnitude_backward_plain(ext, gm, n_fft, hop, mf, win)
+    ref = stft_magnitude_backward_plain(ext.double(), gm.double(), n_fft, hop, mf, win.double())
+    assert ((e.grad - want).abs().max() / want.abs().max()).item() <= 1e-4
+    assert ((e.grad.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(2048, 441), (2229, 480)])
+def test_cuda_backward_row_alone_equals_in_batch(card, n_fft, hop):
+    """Each output sample is one fixed-order sum over its frames, so row 0's
+    gradient is bit-identical alone, inside a batch of 16 and at any number
+    of frames per segment."""
+    mf = 60
+    g = torch.Generator().manual_seed(7)
+    ext = (0.1 * torch.randn(16, (mf - 1) * hop + n_fft, generator=g)).to(card)
+    gm = torch.randn(16, mf, n_fft // 2 + 1, generator=g).to(card)
+    win = window_tensor(n_fft, n_fft, card)
+    one = stft_magnitude_backward_kernel(ext[:1].contiguous(), gm[:1].contiguous(), n_fft, hop, mf, win)
+    for seg in (0, 1, 3, 16, mf):  # 0: the kernel's own choice
+        batch = stft_kernel._backward(ext, gm, n_fft, hop, mf, win, seg)
+        assert torch.equal(batch[:1], one), seg
