@@ -5,7 +5,8 @@
 
 Phases (any failure raises and the script exits non-zero):
   build      nvcc builds every kernel under ssr_eval_tpu_torch/csrc/ into
-             ssr_eval_tpu_torch/_build/ (one nvcc per source, in parallel).
+             ssr_eval_tpu_torch/_build/ (one nvcc per source, in parallel),
+             and g++ the native IO library (native/ssrio.cpp) beside them.
   kernel     the |STFT| kernel on the card at the main path's shapes
              (2048/441, 2229/480 and 743/160, 16 buffers -> [16, 744,
              n_bins]; 2048/512 -> [16, 641, 1025], NVSR's post-processing
@@ -20,6 +21,15 @@ Phases (any failure raises and the script exits non-zero):
              launch count must grow by 8 per batch (1 target + 7 estimates).
              Per-pair metrics must agree with the same sweep on the CPU and,
              for two utterances, with the float64 NumPy oracle.
+  flac       the sweep's 16 utterances re-encoded as 16-bit FLAC with the
+             native encoder (a VCTK-style p000/ layout; each decodes to the
+             WAV's int16 samples) and the headline sweep run on them: the
+             engine must decode through the native batch decoder
+             ("native_batch"), launch the kernel 8 times per batch, and give
+             every per-pair metric within 1e-6 of the WAV sweep's; s/batch,
+             utt/s and the decode stage beside the WAV sweep's; the native
+             decode_batch against the pure-Python flac_py on those files and
+             on the synthetic VCTK set.
   smoke      ssr_eval_tpu_torch.test() (the README smoke run: 48 kHz
              evaluation, so the 2229-point kernel) on the synthetic VCTK set,
              held to the golden values of the JAX package.
@@ -76,6 +86,14 @@ Phases (any failure raises and the script exits non-zero):
              load_vocoder_checkpoint(check=False); the full-width vocoder
              timed.  (d) one step's gradients on the card vs the CPU for the
              small UNet generator and the small vocoder (TRAIN_CARD_VS_CPU).
+  parallel   init_distributed over NCCL at world size 1 (tcp on a free
+             localhost port): SSR_Eval_Helper(mesh=data_mesh())
+             .evaluate(multihost=True) on the FLAC data (within 1e-6 of the
+             flac phase per pair, one results JSON, the rank's journal), and
+             the full-width NVSRTrainer("unet", mesh=make_mesh()) one step
+             from the plain trainer's init and batch (loss and gradients
+             within DP_TOL of each leaf's max), then timed beside the train
+             phase's s/step; the process group is destroyed in a finally.
 
 Output: per-phase lines, then the card's name and power limit, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
@@ -207,6 +225,15 @@ VOC_FULL_STEPS, VOC_FULL_CHANNELS = 3, 512
 # (generator 2.77e-4, at the UNet's BatchNorm on the 1-channel input, whose
 # gradient cancels; vocoder 3.9e-6; PERF.md).
 TRAIN_CARD_VS_CPU = {"generator": 1.5e-3, "vocoder": 2e-5}
+# The parallel phase: the data-parallel generator step at world size 1 vs the
+# plain step from the same init and batch, loss and every gradient leaf
+# within DP_TOL of the leaf's own max (and the loss, relative).  Both
+# steps run with cudnn.deterministic: cuDNN's default algorithms make two
+# plain steps differ by up to 2.9e-5 of the model's largest gradient on an
+# H100, and a last-bit change in one BatchNorm's mean moves the gradients
+# as far.  At one rank the synchronised BatchNorm averages its own
+# moments over one rank, which leaves them bit for bit (models/unet.py).
+DP_TOL = 1e-6
 
 
 def log(*a):
@@ -267,11 +294,22 @@ def noisy_testee(device):
 
 
 def phase_build():
-    from ssr_eval_tpu_torch.dsp import _build
+    """nvcc for every CUDA source and g++ for native/ssrio.cpp, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    t = time.perf_counter()
-    paths = _build.build_all()
-    log(f"[build] {len(paths)} kernel source(s) built in {time.perf_counter() - t:.2f} s")
+    from ssr_eval_tpu_torch.dsp import _build
+    from ssr_eval_tpu_torch.io import build_native
+
+    def timed(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as ex:
+        native = ex.submit(timed, build_native.build)
+        paths, cuda_s = timed(_build.build_all)
+        lib, native_s = native.result()
+    log(f"[build] {len(paths)} kernel source(s) built in {cuda_s:.2f} s; native IO library {lib.name} "
+        f"built by g++ in {native_s:.2f} s")
     for p in paths.values():
         info = [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines() if "Used" in ln or "spill" in ln]
         log(f"[build] {p.name}: {' | '.join(info)}")
@@ -416,16 +454,13 @@ def phase_sweep(work):
     if launches != want:
         raise AssertionError(f"|STFT| kernel launched {launches} times in the sweep, expected {want}")
 
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        helper.evaluate(verbose=False)
-        times.append(time.perf_counter() - t)
+    times, decode_s = timed_runs(helper)
     best = min(times)
     log(
         f"[sweep] warm-up {warm_s:.3f} s; timed runs {[round(x, 4) for x in times]} s; "
         f"best {best / n_batches:.4f} s/batch, {N_UTTS / best:.2f} utt/s "
-        f"({N_UTTS} utts x {len(CUTOFFS)} cutoffs, batch {BATCH}); kernel launches {launches}"
+        f"({N_UTTS} utts x {len(CUTOFFS)} cutoffs, batch {BATCH}); kernel launches {launches}; "
+        f"decode stage {decode_s:.4f} s per timed run"
     )
     log("[sweep] stages over all card runs:", json.dumps(helper.engine.stats.summary()))
     profile_sweep(helper)
@@ -454,7 +489,112 @@ def phase_sweep(work):
     if oracle["lsd"] > 1e-3:
         raise AssertionError(f"card LSD off the float64 oracle by {oracle['lsd']:.3e} (limit 1e-3)")
     log("[sweep] averaged:", json.dumps(card["averaged"]))
-    return launches
+    return {"launches": launches, "root": root, "kw": kw, "card": card, "s_per_batch": best / n_batches,
+            "utt_per_s": N_UTTS / best, "decode_s": decode_s}
+
+
+def timed_runs(helper, n=3):
+    """n warm sweeps -> (their seconds, the engine's decode stage seconds
+    per run)."""
+    times = []
+    d0 = helper.engine.stats.seconds["decode"]
+    for _ in range(n):
+        t = time.perf_counter()
+        helper.evaluate(verbose=False)
+        times.append(time.perf_counter() - t)
+    return times, (helper.engine.stats.seconds["decode"] - d0) / n
+
+
+def _by_stem(res):
+    """(speaker, file stem, key) -> metrics: a WAV and a FLAC sweep of the
+    same PCM compare pair by pair."""
+    return {(spk, os.path.splitext(f)[0], key): m for (spk, f, key), m in _pairs(res).items()}
+
+
+def _stem_delta(a, b):
+    pa, pb = _by_stem(a), _by_stem(b)
+    if not pa or set(pa) != set(pb):
+        raise AssertionError("two sweeps scored different (file, spec) pairs")
+    finite = all(math.isfinite(pa[p][k]) for p in pa for k in METRICS)
+    return {k: max(abs(pa[p][k] - pb[p][k]) for p in pa) for k in METRICS}, finite
+
+
+def _decoder_seconds(paths):
+    """(native decode_batch, the port's pure-Python flac_py) seconds over
+    `paths`, each after one warm read of the files."""
+    from ssr_eval_tpu_torch.io import flac_native, flac_py
+
+    flac_native.decode_batch(paths, 8)
+    t = time.perf_counter()
+    flac_native.decode_batch(paths, 8)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for p in paths:
+        flac_py.decode_flac(p)
+    return native_s, time.perf_counter() - t
+
+
+def phase_flac(work, sweep):
+    """The headline sweep again on the same PCM written as 16-bit FLAC in a
+    VCTK-style layout, decoded by the native batch decoder."""
+    import torch
+
+    import ssr_eval_tpu_torch
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
+    from ssr_eval_tpu_torch.harness.fixtures import ensure_synthetic_vctk
+    from ssr_eval_tpu_torch.io import flac_native
+    from ssr_eval_tpu_torch.io.audio import flac_codec, read_wav_i16
+
+    t = time.perf_counter()
+    codec = flac_codec()  # builds native/ssrio.cpp unless the build phase did
+    log(f"[flac] codec {codec} ({time.perf_counter() - t:.2f} s to load)")
+    if codec != "native":
+        raise AssertionError("the native FLAC library did not build")
+    root = os.path.join(work, "flac_data")
+    spk = os.path.join(root, "p000")
+    os.makedirs(spk)
+    wav_dir = os.path.join(sweep["root"], "p000")
+    flac_paths = []
+    for f in sorted(os.listdir(wav_dir)):
+        pcm, sr = read_wav_i16(os.path.join(wav_dir, f))
+        p = os.path.join(spk, os.path.splitext(f)[0] + ".flac")
+        flac_native.encode(p, pcm.astype(np.float32) / np.float32(32768.0), sr)
+        got, got_sr = flac_native.decode_i16(p)
+        if got_sr != sr or not np.array_equal(got, pcm):
+            raise AssertionError(f"{p}: the FLAC does not decode to the WAV's int16 samples")
+        flac_paths.append(p)
+    kw = dict(sweep["kw"], test_data_root=root, test_name="chip_flac")
+    testee, _ = noisy_testee(torch.device("cuda"))
+    helper = ssr_eval_tpu_torch.SSR_Eval_Helper(testee, **kw)
+    n_batches = -(-N_UTTS // BATCH)
+    helper.evaluate(verbose=False)  # warm-up
+    stft_magnitude_kernel.launches = 0
+    card = helper.evaluate(verbose=False)
+    launches = stft_magnitude_kernel.launches
+    times, decode_s = timed_runs(helper)
+    best = min(times)
+    delta, finite = _stem_delta(card, sweep["card"])
+    decoders = helper.engine.stats.decoders
+    log(f"[flac] {len(flac_paths)} x {UTT_SECONDS} s 16-bit FLAC, decoders {sorted(decoders)}; timed runs "
+        f"{[round(x, 4) for x in times]} s; best {best / n_batches:.4f} s/batch, {N_UTTS / best:.2f} utt/s, "
+        f"decode stage {decode_s:.4f} s per timed run (WAV sweep: {sweep['s_per_batch']:.4f} s/batch, "
+        f"{sweep['utt_per_s']:.2f} utt/s, decode {sweep['decode_s']:.4f} s); kernel launches {launches}")
+    log(f"[flac] max |FLAC sweep - WAV sweep| per pair: {json.dumps(delta)}")
+    log("[flac] stages over all card runs:", json.dumps(helper.engine.stats.summary()))
+    if decoders != {"native_batch"}:
+        raise AssertionError(f"the FLAC sweep decoded through {sorted(decoders)}, not the native batch decoder")
+    if launches != n_batches * (1 + len(CUTOFFS)):
+        raise AssertionError(f"|STFT| kernel launched {launches} times in the FLAC sweep")
+    if not finite or any(delta[k] > 1e-6 for k in METRICS):
+        raise AssertionError(f"FLAC sweep off the WAV sweep: {delta} (limit 1e-6)")
+    vctk = ensure_synthetic_vctk(os.path.join(work, "vctk_test"), files_per_speaker=2)
+    vctk_paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(vctk) for f in fs if f.endswith(".flac"))
+    for name, paths in (("the sweep's 16 x 6 s at 44.1 kHz", flac_paths),
+                        (f"the synthetic VCTK set ({len(vctk_paths)} files at 48 kHz)", vctk_paths)):
+        native_s, py_s = _decoder_seconds(paths)
+        log(f"[flac] decode {name}: native decode_batch {native_s:.4f} s, pure-Python flac_py {py_s:.4f} s "
+            f"({py_s / native_s:.1f}x) on this host's CPU")
+    return {"launches": launches, "root": root, "kw": kw, "card": card}
 
 
 def profile_sweep(helper, tag="profile"):
@@ -1152,12 +1292,22 @@ def _grad_delta(model_cpu, model_card, loss_cpu, loss_card):
     over the leaf's scale (see TRAIN_CARD_VS_CPU), the worst leaf)."""
     loss_cpu.backward()
     loss_card.backward()
-    cpu = dict(model_cpu.named_parameters())
-    floor = 1e-4 * max(p.grad.abs().max().item() for p in cpu.values())
+    return _leaf_delta(_grads_of(model_cpu), _grads_of(model_card), 1e-4)
+
+
+def _grads_of(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+
+
+def _leaf_delta(ref, got, floor):
+    """max over leaves of max|got - ref| over the leaf's scale, max(its max,
+    floor x the model's largest gradient) -> (value, leaf)."""
+    if set(ref) != set(got):
+        raise AssertionError("two steps produced gradients for different leaves")
+    floor = floor * max(g.abs().max().item() for g in ref.values())
     worst, name = 0.0, None
-    for k, p in model_card.named_parameters():
-        ref = cpu[k].grad
-        d = (p.grad.cpu() - ref).abs().max().item() / max(ref.abs().max().item(), floor)
+    for k, r in ref.items():
+        d = (got[k].to(r.device) - r).abs().max().item() / max(r.abs().max().item(), floor)
         if not math.isfinite(d) or d > worst:
             worst, name = (d if math.isfinite(d) else math.inf), k
     return worst, name
@@ -1251,6 +1401,7 @@ def phase_train(work):
         raise AssertionError(f"the full-width generator's fixed-batch loss did not fall: {losses}")
     del tr, state, pipe, mel_lr, mel_hr
     _free_card()
+    gen_times = times
 
     # (c) the small vocoder, then the full-width one for a few steps
     vt = VocoderTrainer(SMALL_TFGAN, learning_rate=VOC_LR)
@@ -1328,7 +1479,118 @@ def phase_train(work):
             or stft_magnitude_backward_kernel.launches != before + 1):
         raise AssertionError(f"train card vs CPU failed: generator {d_gen} ({k_gen}), vocoder {d_voc} ({k_voc})")
     launches["train_vocoder_backward"] = bwd_launches
-    return launches, bwd_shapes
+    return launches, bwd_shapes, gen_times
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(work, flac, train_step_s):
+    """The data-parallel path at world size 1 over NCCL: the multihost
+    sweep on the FLAC data and one data-parallel generator step."""
+    import glob
+
+    import torch
+
+    import ssr_eval_tpu_torch
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_backward_kernel, stft_magnitude_kernel
+    from ssr_eval_tpu_torch.harness.fixtures import speechlike
+    from ssr_eval_tpu_torch.harness.resume import process_journal_path
+    from ssr_eval_tpu_torch.models.data import MelPairPipeline
+    from ssr_eval_tpu_torch.models.train import NVSRTrainer, make_mesh
+    from ssr_eval_tpu_torch.parallel import data_mesh
+    from ssr_eval_tpu_torch.parallel.multihost import init_distributed
+
+    port = _free_port()
+    dev = init_distributed(f"localhost:{port}", 1, 0)
+    try:
+        log(f"[parallel] init_distributed: backend {torch.distributed.get_backend()}, world size "
+            f"{torch.distributed.get_world_size()}, device {dev} (tcp://localhost:{port})")
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the card's process group is not NCCL")
+        testee, _ = noisy_testee(dev)
+        kw = dict(flac["kw"], test_name="chip_parallel")
+        helper = ssr_eval_tpu_torch.SSR_Eval_Helper(testee, mesh=data_mesh(), **kw)
+        audios = [speechlike(2.0, SR, seed=s) for s in range(GEN_AUDIOS)]
+        pipe = MelPairPipeline(crop_seconds=GEN_CROP, cutoffs=GEN_CUTOFFS)
+        wav = pipe.random_crops(audios, np.random.default_rng(123), GEN_BATCH)
+        plain = NVSRTrainer(model_name="unet", learning_rate=GEN_LR)
+        dp = NVSRTrainer(model_name="unet", learning_rate=GEN_LR, mesh=make_mesh())
+
+        stft_magnitude_kernel.launches = stft_magnitude_backward_kernel.launches = 0
+        res = helper.evaluate(multihost=True, verbose=False)
+        mel_lr, mel_hr = pipe.make_pair(wav, 1)
+        torch.backends.cudnn.deterministic = True  # the same algorithms for both steps
+        try:
+            s_plain, loss_plain = plain.step(plain.init_state(seed=0), mel_lr, mel_hr)
+            s_dp, loss_dp = dp.step(dp.init_state(seed=0), mel_lr, mel_hr)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.synchronize()
+        launches = stft_magnitude_kernel.launches
+        bwd = stft_magnitude_backward_kernel.launches
+
+        delta, finite = _stem_delta(res, flac["card"])
+        jsons = glob.glob(os.path.join("results", "*-chip_parallel.json"))
+        journal = process_journal_path(os.path.join("results", "chip_parallel.partial.jsonl"), 0, 1)
+        log(f"[parallel] evaluate(multihost=True) with mesh=data_mesh(): max |parallel - flac| per pair "
+            f"{json.dumps(delta)}; results JSON {len(jsons)}; journal {journal} "
+            f"{'present' if os.path.exists(journal) else 'MISSING'}; decoders "
+            f"{sorted(helper.engine.stats.decoders)}")
+        if not finite or any(delta[k] > 1e-6 for k in METRICS) or len(jsons) != 1 or not os.path.exists(journal):
+            raise AssertionError(f"the multihost sweep failed: {delta}, {len(jsons)} JSON, journal {journal}")
+        d_loss = abs(float(loss_dp) - float(loss_plain)) / abs(float(loss_plain))
+        g_plain, g_dp = _grads_of(s_plain["model"]), _grads_of(s_dp["model"])
+        d_grad, leaf = _leaf_delta(g_plain, g_dp, 0.0)
+        d_model, leaf_model = _leaf_delta(g_plain, g_dp, 1.0)
+        log(f"[parallel] NVSRTrainer('unet', mesh=make_mesh()) vs no mesh, one step from seed 0 on one batch "
+            f"[{GEN_BATCH}, {mel_lr.shape[1]}, {mel_lr.shape[2]}] (cudnn deterministic): loss {float(loss_dp):.7f} "
+            f"vs {float(loss_plain):.7f} (relative {d_loss:.3e}); gradients {d_grad:.3e} of the leaf's own max "
+            f"({leaf}), {d_model:.3e} of the model's largest ({leaf_model}); |STFT| launches on the path {launches} "
+            f"(8 per sweep batch + 2 for the mel pair), backward {bwd}")
+        if not d_loss <= DP_TOL or not d_grad <= DP_TOL:
+            raise AssertionError(f"data-parallel step off the plain step: loss {d_loss}, gradients {d_grad} ({leaf})")
+        want = -(-N_UTTS // BATCH) * (1 + len(CUTOFFS)) + 2
+        if launches != want or bwd:
+            raise AssertionError(f"parallel path: {launches} |STFT| launches (expected {want}), {bwd} backward")
+        del plain, s_plain
+        _free_card()
+        times = []
+        for _ in range(GEN_FIXED_STEPS):
+            t = time.perf_counter()
+            _, loss = dp.step(s_dp, mel_lr, mel_hr)
+            float(loss)  # synchronises
+            times.append(time.perf_counter() - t)
+        median = sorted(times)[len(times) // 2]
+        log(f"[parallel] data-parallel generator s/step {[round(x, 4) for x in times]} (best {min(times):.4f}, "
+            f"median {median:.4f}; the train phase's plain trainer: best {min(train_step_s):.4f}, median "
+            f"{sorted(train_step_s)[len(train_step_s) // 2]:.4f})")
+        busy = profile_call(lambda: [dp.step(s_dp, mel_lr, mel_hr) for _ in range(2)], "parallel-profile", keep="nccl")
+        idle = None if busy is None else 1 - busy / 2e3 / median
+        # what one BatchNorm's collective costs: 100 all-reduces of a
+        # [2, 384] tensor (the widest BatchNorm's moments), synchronised
+        x = torch.zeros(2, 384, device=dev)
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        per_call = (time.perf_counter() - t) / 100
+        n_bn = sum(1 for m in s_dp["model"].modules() if getattr(m, "sync_stats", False))
+        log(f"[parallel] idle share against the unprofiled median DP step {idle}; one NCCL all_reduce of "
+            f"[2, 384] {per_call * 1e6:.1f} us ({n_bn} synchronised BatchNorms: one forward and one backward "
+            f"all-reduce each per step, {2 * n_bn * per_call:.4f} s/step at that rate)")
+        del dp, s_dp
+        _free_card()
+    finally:
+        torch.distributed.destroy_process_group()
+    return launches
 
 
 def main():
@@ -1350,13 +1612,16 @@ def main():
         cwd = os.getcwd()
         os.chdir(work)  # the helper writes results/ into the working directory
         try:
-            launches = {"sweep": phase_sweep(work)}
+            sweep = phase_sweep(work)
+            flac = phase_flac(work, sweep)
+            launches = {"sweep": sweep["launches"], "flac": flac["launches"]}
             phase_smoke(work)
             phase_invariance(work)
             launches["matrix"] = phase_matrix(work)
             launches["families"] = phase_families(work)
             launches["nvsr"] = phase_nvsr(work)
-            train_launches, bwd_shapes = phase_train(work)
+            train_launches, bwd_shapes, gen_times = phase_train(work)
+            launches["parallel"] = phase_parallel(work, flac, gen_times)
         finally:
             os.chdir(cwd)
     log(f"[env] all phases {time.perf_counter() - t0:.1f} s")

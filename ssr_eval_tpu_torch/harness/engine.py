@@ -28,8 +28,10 @@ float64 NumPy (`metrics.host_reference`) over the device-produced estimate
 and ground-truth waveforms, as the JAX engine does; mp3 and host-testee
 scores stay on the device.
 
-Keywords follow the JAX package's engine: `mesh` must be None (one card;
-data parallelism is ROADMAP.md 1.15), and `profile_dir` (or
+Keywords follow the JAX package's engine: `mesh` is None or a `DataMesh`
+(`ssr_eval_tpu_torch.parallel.data_mesh()`), whose device the engine runs
+on: one process drives one card, so the data axis spans processes and the
+helper shards files over it; and `profile_dir` (or
 SSR_EVAL_TPU_PROFILE) writes a torch.profiler trace of each
 `evaluate_files` call.  The JAX engine's XLA program-shape knobs
 (`infer_fold_max`, `mega_batches`, `wire_codec`, `spec_unroll`,
@@ -56,7 +58,6 @@ from ssr_eval_tpu_torch.degrade.apply import (
     family_key,
     spec_params,
 )
-from ssr_eval_tpu_torch.device import resolve_device
 from ssr_eval_tpu_torch.dsp.resample import (
     apply_resample,
     resample_poly_plan,
@@ -64,13 +65,14 @@ from ssr_eval_tpu_torch.dsp.resample import (
 )
 from ssr_eval_tpu_torch.dsp.spectral import n_frames_for_length, stft_magnitude
 from ssr_eval_tpu_torch.harness.testee import state_from_numpy
-from ssr_eval_tpu_torch.io.audio import decode_audio, decode_audio_i16, write_wav
+from ssr_eval_tpu_torch.io.audio import decode_audio, decode_audio_i16, native_flac, write_wav
 from ssr_eval_tpu_torch.metrics.kernels import (
     metric_stft_config,
     spectral_metrics,
     spectral_metrics_with_target,
     ssim_target_moments,
 )
+from ssr_eval_tpu_torch.parallel.mesh import as_data_mesh, mesh_device
 from ssr_eval_tpu_torch.utils.bucket import bucket_length
 from ssr_eval_tpu_torch.utils.profiling import StageTimers, device_trace
 
@@ -80,6 +82,11 @@ METRIC_KEYS = ("lsd", "log_sispec", "sispec", "ssim")
 # oldest is collected: the host decodes and enqueues batch k+1 while the
 # card still computes batch k.
 MAX_PENDING = 2
+
+
+def _env_flag(name: str, default: str) -> bool:
+    """"0", "false" and "" mean off (the JAX package's env-flag rule)."""
+    return os.environ.get(name, default) not in ("0", "false", "")
 
 
 class EvalEngine:
@@ -102,11 +109,8 @@ class EvalEngine:
         input_res_type="polyphase",
         metrics_backend="device",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EvalEngine runs on one card; data parallelism over a device mesh is ROADMAP.md 1.15"
-            )
-        self.device = resolve_device(device)
+        self.mesh = as_data_mesh(mesh, "EvalEngine")
+        self.device = mesh_device(self.mesh, device)
         self.specs = list(specs)
         # Device specs grouped by family key (first-appearance order); an
         # unknown family raises ValueError here.
@@ -365,8 +369,21 @@ class EvalEngine:
                 yield self._pack_batch(sr, b, rows)
 
     def _stream_batches(self, paths):
-        """Decode on a thread pool and yield batches as files complete (in
-        path order), so host decode overlaps device work."""
+        """Decode and yield batches as files complete (in path order), so
+        host decode overlaps device work.
+
+        A set whose every file is FLAC or RIFF/WAVE (content sniff) takes
+        the native batch decoder: one C++ call per chunk of files across the
+        library's worker threads, no per-file Python.  Otherwise, or with
+        SSR_EVAL_TPU_NATIVE_BATCH=0 (the JAX package's switch), a thread
+        pool decodes file by file.  `stats.decoders` records which ran."""
+        if _env_flag("SSR_EVAL_TPU_NATIVE_BATCH", "1"):
+            native = self._native_stream_batches(paths)
+            if native is not None:
+                self.stats.decoders.add("native_batch")
+                yield from native
+                return
+        self.stats.decoders.add("python_pool")
 
         def pool_items():
             with ThreadPoolExecutor(max_workers=self.io_workers) as ex:
@@ -374,6 +391,38 @@ class EvalEngine:
                     yield i, x, sr
 
         yield from self._accumulate_batches(pool_items())
+
+    @staticmethod
+    def _sniff_magic(p):
+        try:
+            with open(p, "rb") as f:
+                return f.read(4)
+        except OSError:
+            return b""
+
+    def _native_stream_batches(self, paths):
+        """Batches through the native batch decoder, or None when the
+        library is unavailable or a file is not a container it decodes
+        (sniffed by content, not extension: a misnamed file keeps the
+        per-file path, which raises naming it)."""
+        if not paths:
+            return None
+        flac_native = native_flac()
+        if flac_native is None or not flac_native.HAS_BATCH:
+            return None
+        magics = {b"fLaC", b"RIFF"} if flac_native.HAS_WAV_BATCH else {b"fLaC"}
+        if not all(self._sniff_magic(p) in magics for p in paths):
+            return None
+
+        def native_items():
+            chunk_size = max(self.batch_size * 4, 32)
+            for start in range(0, len(paths), chunk_size):
+                chunk = [str(p) for p in paths[start : start + chunk_size]]
+                decoded = flac_native.decode_batch(chunk, self.io_workers)
+                for idx, (x, sr) in enumerate(decoded, start=start):
+                    yield idx, self._mono_row(x), int(sr)
+
+        return self._accumulate_batches(native_items())
 
     def evaluate_files(self, paths):
         """-> {path: {spec_key: {metric: float, ...}}} in spec order."""

@@ -4,11 +4,11 @@ eval.py:63-421) on the batched torch engine.
 Constructor signature, evaluate()/evaluate_single()/preprocess(), the
 aggregation structure ("each_speaker"/"averaged" blocks) and the
 results-JSON naming follow the reference; the execution underneath is
-`ssr_eval_tpu_torch.harness.engine.EvalEngine` on one device.
+`ssr_eval_tpu_torch.harness.engine.EvalEngine`, one device per process.
 
 Extras (keyword-only, defaulted so reference call sites work unchanged):
-the JAX package's helper keywords, `mesh` (None only: one card; data
-parallelism is ROADMAP.md 1.15), `batch_size`, `auto_download`,
+the JAX package's helper keywords, `mesh` (None, or a `DataMesh` from
+`ssr_eval_tpu_torch.parallel.data_mesh()`: see `evaluate`), `batch_size`, `auto_download`,
 `input_res_type`, `metrics_backend` ("device", or "host_float64" for the
 float64 host recomputation) and `evaluate(multihost=...)`, plus `device`
 (None = the CUDA card; "cpu" runs the plain PyTorch path).  Every
@@ -27,15 +27,13 @@ import torch
 
 from ssr_eval_tpu_torch.degrade.plan import expand_settings
 from ssr_eval_tpu_torch.harness.engine import EvalEngine
-from ssr_eval_tpu_torch.harness.resume import ResultJournal, load_partial
+from ssr_eval_tpu_torch.harness.resume import ResultJournal, load_partial, process_journal_path
 from ssr_eval_tpu_torch.metrics.audio_metrics import AudioMetrics
+from ssr_eval_tpu_torch.parallel.mesh import group_rank_and_size
+from ssr_eval_tpu_torch.parallel.multihost import gather_results_to_coordinator, shard_paths
 from ssr_eval_tpu_torch.utils.common import dict_mean, write_json
 
 VCTK_URL = "https://zenodo.org/record/6370601/files/vctk_test_48k.tar?download=1"
-
-
-def _distributed() -> bool:
-    return torch.distributed.is_available() and torch.distributed.is_initialized()
 
 
 class SSR_Eval_Helper:
@@ -153,22 +151,28 @@ class SSR_Eval_Helper:
             (written as batches complete).
         verbose: per-speaker progress + a throughput summary.
         multihost: the JAX package's keyword.  "auto" means a
-            torch.distributed process group of more than one process; True
-            forces the multi-process path, False disables it.  In one
-            process both paths are the same run (one JSON, the journal at its
-            base path).  Sharding files over several processes is ROADMAP.md
-            1.15: until then a multi-process run raises NotImplementedError
-            rather than have every rank score every file.
+            torch.distributed process group of more than one rank; True
+            forces the multi-process path, False disables it.
+
+        One process drives one card, so the port's `mesh` (a `DataMesh`:
+        a "data" axis over the process group's ranks) and `multihost=True`
+        run the same path: the file list is sharded round-robin over the
+        ranks (`parallel.multihost.shard_paths`), each rank scores its
+        shard into its own journal (`results/<test_name>.partial.p<rank>.jsonl`
+        in a group of several; the base path in a group of one), the
+        per-file metrics are gathered to every rank, every rank returns the
+        merged result in speaker and file order, and rank 0 alone writes
+        the results JSON.  With `resume` every rank's journal is gathered
+        before the files left to score are chosen, so the ranks agree on
+        them.  multihost=False in a group keeps the JAX meaning: every rank
+        runs the whole sweep and writes its JSON.  (The JAX package also
+        shards one batch over several devices of a process; a
+        one-card-per-process layout has no counterpart of that.)
         """
         if multihost not in ("auto", True, False):
             raise ValueError(f"multihost must be 'auto', True or False, got {multihost!r}")
-        world = torch.distributed.get_world_size() if _distributed() else 1
+        rank, world = group_rank_and_size()
         use_multihost = multihost if multihost != "auto" else world > 1
-        if use_multihost and world > 1:
-            raise NotImplementedError(
-                f"evaluate(multihost={multihost!r}) in a process group of {world}: sharding the "
-                "sweep over processes is ROADMAP.md 1.15"
-            )
         final_result = {}
         result_cache = {}
         averaged_result = {}
@@ -197,6 +201,10 @@ class SSR_Eval_Helper:
         all_paths = [p for fs in speaker_files.values() for p in fs]
         expected_keys = {s.key for s in self.specs}
         partial = load_partial(journal_path) if resume else {}
+        if resume and use_multihost:
+            # journals may sit on per-host filesystems: every rank must
+            # choose the same files left to score, or some go unscored
+            partial = gather_results_to_coordinator(partial)
         done = {
             p
             for p in all_paths
@@ -209,12 +217,18 @@ class SSR_Eval_Helper:
             if done:
                 print(f"[resume] {len(done)}/{len(all_paths)} files already scored")
 
-        self.engine.journal = ResultJournal(journal_path)
+        my_todo = shard_paths(todo) if use_multihost else todo
+        # one journal per rank: concurrent appends to one file interleave
+        self.engine.journal = ResultJournal(
+            process_journal_path(journal_path, rank, world) if use_multihost else journal_path
+        )
         try:
-            per_file = self.engine.evaluate_files(todo) if todo else {}
+            per_file = self.engine.evaluate_files(my_todo) if my_todo else {}
         finally:
             self.engine.journal.close()
             self.engine.journal = None
+        if use_multihost:
+            per_file = gather_results_to_coordinator(per_file)
         for p in done:
             per_file[p] = {k: partial[p][k] for k in [s.key for s in self.specs]}
 
@@ -244,7 +258,8 @@ class SSR_Eval_Helper:
         # Artifact naming parity: "<date>-<time>-<test_name>.json"
         # (reference eval.py:219-226).
         save_path = f"{now.date()}-{now.time()}-{self.test_name}.json"
-        write_json(final_result, os.path.join("results", save_path))
+        if not use_multihost or rank == 0:
+            write_json(final_result, os.path.join("results", save_path))
         return final_result
 
     def preprocess(self, file, sr):

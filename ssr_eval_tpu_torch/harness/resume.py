@@ -41,20 +41,33 @@ def process_journal_path(base_path: str, process_index: int, process_count: int)
     return f"{root}.p{process_index}{ext}"
 
 
+def _journal_files(path: str):
+    """The base journal and every per-process sibling (`<root>.p<i><ext>`)."""
+    import glob
+
+    root, ext = os.path.splitext(path)
+    # strip a .p<i> suffix so every process resolves the same family
+    base, tail = os.path.splitext(root)
+    if tail.startswith(".p") and tail[2:].isdigit():
+        root = base
+    candidates = [root + ext] + sorted(glob.glob(f"{glob.escape(root)}.p*{ext}"))
+    return [p for p in candidates if os.path.exists(p)]
+
+
 def load_partial(path: str) -> dict:
-    """-> {file_path: {key: metrics}} from the journal at `path` (a torn
-    final line from a crash is skipped)."""
+    """-> {file_path: {key: metrics}} merged from the journal at `path` and
+    the per-process journals beside it (a torn final line from a crash is
+    skipped)."""
     out = {}
-    if not os.path.exists(path):
-        return out
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                rec = json.loads(line)
-            except json.JSONDecodeError:
-                continue
-            out.setdefault(rec["path"], {})[rec["key"]] = rec["metrics"]
+    for fp in _journal_files(path):
+        with open(fp) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                out.setdefault(rec["path"], {})[rec["key"]] = rec["metrics"]
     return out

@@ -1,7 +1,11 @@
 """Host-edge audio IO: WAV/FLAC decode + WAV/FLAC encode, dependency-free.
 
 - a pure-NumPy RIFF/WAVE reader/writer (PCM 8/16/24/32 and float32/64),
-- FLAC decode/encode through the pure-Python codec (io/flac_py.py),
+- FLAC decode/encode through the native library (`native/ssrio.cpp`, built
+  by io/build_native.py at first use, bound in io/flac_native.py), with the
+  pure-Python codec (io/flac_py.py) as the fallback when that build fails:
+  `flac_codec()` says which one runs, and the fallback warns once with the
+  compiler's error,
 - `load(path, sr, mono)` — librosa.load-compatible entry: decode, average
   channels to mono, normalize to float32 in [-1, 1], and resample
   (scipy.resample_poly semantics, or the windowed-sinc bank for
@@ -11,6 +15,8 @@
 from __future__ import annotations
 
 import struct
+import threading
+import warnings
 
 import numpy as np
 from scipy.signal import resample_poly as _scipy_resample_poly
@@ -123,17 +129,55 @@ def read_wav_i16(path):
 
 
 # --------------------------------------------------------------------------
-# FLAC
+# FLAC (native library first, pure-Python fallback)
 # --------------------------------------------------------------------------
+
+_native_lock = threading.Lock()
+_native_state = []  # [flac_native module or None], filled at first use
+
+
+def native_flac():
+    """-> the io.flac_native module, or None when the library does not
+    build or load (then a RuntimeWarning, once, carries the error)."""
+    with _native_lock:
+        if not _native_state:
+            from ssr_eval_tpu_torch.io import flac_native
+
+            try:
+                flac_native.HAS_BATCH  # builds and loads the library
+                _native_state.append(flac_native)
+            except (RuntimeError, OSError) as err:
+                warnings.warn(
+                    f"the native FLAC library is unavailable, FLAC runs through the "
+                    f"pure-Python codec: {err}",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+                _native_state.append(None)
+        return _native_state[0]
+
+
+def flac_codec() -> str:
+    """Which FLAC codec this process runs: "native" or "python"."""
+    return "python" if native_flac() is None else "native"
+
 
 def read_flac(path):
     """-> (float32 data [n] or [n, ch] in [-1, 1], sample_rate)."""
+    nat = native_flac()
+    if nat is not None:
+        return nat.decode(path)
     return decode_flac(path)
 
 
 def write_flac(path, data, sr):
-    """Encode FLAC (VERBATIM subframes, 16-bit)."""
-    return encode_flac(path, np.asarray(data, dtype=np.float32), sr)
+    """Encode 16-bit FLAC (native: fixed predictors + Rice coding; the
+    fallback writes VERBATIM subframes).  Both decode to the same samples."""
+    data = np.asarray(data, dtype=np.float32)
+    nat = native_flac()
+    if nat is not None:
+        return nat.encode(path, data, sr)
+    return encode_flac(path, data, sr)
 
 
 # --------------------------------------------------------------------------
@@ -162,6 +206,9 @@ def decode_audio_i16(path):
     if magic == b"RIFF":
         return read_wav_i16(path)
     if magic == b"fLaC":
+        nat = native_flac()
+        if nat is not None:
+            return nat.decode_i16(path)
         data, sr, bps = decode_flac(path, raw=True)
         if bps != 16:
             return None

@@ -1,0 +1,71 @@
+"""Build the repository's native IO library (``native/ssrio.cpp``) for the
+port, at first use (``io/flac_native.py`` loads it with ctypes).
+
+    python -m ssr_eval_tpu_torch.io.build_native     # build now, print the path
+
+One g++ call with the flags of ``native/Makefile``:
+
+    g++ -O3 -fPIC -Wall -std=c++17 -pthread -shared \
+        -o ssr_eval_tpu_torch/_build/ssrio-<hash>.so native/ssrio.cpp
+
+The library lands in the port's ``_build/`` directory keyed by a hash of the
+source and the flags, so an unchanged source is built once per checkout.
+``make -C native`` is never run: its target lies inside the JAX package.
+Concurrent processes (test workers) serialise on a file lock, and each
+build goes to a temporary name first, then ``os.replace``, so no process
+loads a partial file.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+SOURCE = PKG.parent / "native" / "ssrio.cpp"
+BUILD_DIR = PKG / "_build"
+CXX_FLAGS = ("-O3", "-fPIC", "-Wall", "-std=c++17", "-pthread", "-shared")
+
+
+def _cxx() -> str:
+    cxx = shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found on PATH: cannot build native/ssrio.cpp")
+    return cxx
+
+
+def _target() -> Path:
+    """The library path for the current source and flags."""
+    if not SOURCE.exists():
+        raise RuntimeError(f"{SOURCE} not found: the native IO source is not in this checkout")
+    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"ssrio-{h}.so"
+
+
+def build() -> Path:
+    """Compile native/ssrio.cpp unless already built -> the library path.
+    Raises RuntimeError with the compiler's output on failure."""
+    out = _target()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / "ssrio.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+        if out.exists():
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+if __name__ == "__main__":
+    print(build())

@@ -18,17 +18,29 @@ package's `.npz` variables tree ({"params": {"generator": ...},
 "batch_stats": {"generator": ...}}, `convert.flax_from_nvsr_state`), which
 `NVSRTestee.load_generator_checkpoint` and the JAX package both read.
 
-`mesh`: the JAX trainer's dp x tp step over a device mesh is not ported yet
-(ROADMAP.md 1.15); one card only.
+`mesh` (`make_mesh()`): data parallelism over the ranks of the default
+torch.distributed process group, one card per process.  Every rank holds the
+whole model and is given the whole global batch; it takes its B/W rows,
+and one all-reduce per step, in a fixed order after `backward`, averages
+the gradients (and the loss) over the W ranks.  The BatchNorms take their
+statistics over the global batch, as flax's do over a batch sharded on
+"data": each averages its per-channel mean and mean of squares over the
+ranks through the autograd-aware `torch.distributed.nn.functional.all_reduce`
+(every rank holds B/W rows), so the forward, the backward and the running
+statistics are the one-process step's on the whole batch.  The JAX
+trainer's "model" axis (tensor parallelism over output channels) is not
+ported: ROADMAP.md 1.15a.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ssr_eval_tpu_torch.device import resolve_device
 from ssr_eval_tpu_torch.models.nvsr import NVSR, init_weights, to_log
+from ssr_eval_tpu_torch.models.unet import FlaxBatchNorm
+from ssr_eval_tpu_torch.parallel.mesh import DataMesh, as_data_mesh, data_mesh, mesh_device
 
 
 def adamw(params, learning_rate):
@@ -36,16 +48,40 @@ def adamw(params, learning_rate):
     return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 
 
+def make_mesh(n_devices=None, tp=None, device=None) -> DataMesh:
+    """The trainer's mesh: the "data" axis over the default process group's
+    ranks (`parallel.data_mesh(device)`).
+
+    n_devices: the ranks expected; a group of another size raises (one card
+    per process: start that many processes, each calling
+    `parallel.multihost.init_distributed`).  tp: the JAX package's "model"
+    axis.  It defaults to 1 here (the JAX package takes 2 when it divides
+    the device count); tp > 1 raises NotImplementedError (ROADMAP.md
+    1.15a)."""
+    if tp is not None and tp > 1:
+        raise NotImplementedError(
+            f"make_mesh(tp={tp}): tensor parallelism over output channels is not ported (ROADMAP.md 1.15a)"
+        )
+    mesh = data_mesh(device)
+    if n_devices is not None and n_devices != mesh.size:
+        raise ValueError(
+            f"make_mesh: requested {n_devices} devices but the process group has {mesh.size} rank(s), one "
+            "card each: start that many processes and call parallel.multihost.init_distributed in each"
+        )
+    return mesh
+
+
 class NVSRTrainer:
     """Generator training.  device: None is the CUDA card (raises without
-    one), "cpu" the CPU."""
+    one), "cpu" the CPU; mesh: None, or `make_mesh()` for data parallelism
+    (the device is then the mesh's)."""
 
     def __init__(self, model_name="unet", learning_rate=1e-4, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "NVSRTrainer runs on one card; the dp x tp mesh step is ROADMAP.md 1.15"
-            )
-        self.device = resolve_device(device)
+        self.mesh = as_data_mesh(mesh, "NVSRTrainer")
+        self.device = mesh_device(self.mesh, device)
+        # collectives run whenever a process group backs the mesh, even
+        # one of a single rank
+        self._synced = self.mesh is not None and dist.is_available() and dist.is_initialized()
         self.model = NVSR(model_name=model_name)
         self.learning_rate = learning_rate
 
@@ -64,6 +100,10 @@ class NVSRTrainer:
         else:
             init_weights(gen, seed)
         gen.to(self.device).train()
+        if self._synced:
+            for m in gen.modules():
+                if isinstance(m, FlaxBatchNorm):
+                    m.sync_stats = True
         return {"model": gen, "opt": adamw(gen.parameters(), self.learning_rate)}
 
     @staticmethod
@@ -73,13 +113,39 @@ class NVSRTrainer:
 
     def step(self, state, mel_lr, mel_hr):
         """One AdamW step on a batch [B, T, M] -> (state, loss as a 0-d
-        tensor on the device)."""
+        tensor on the device).  With a mesh the batch is the global one
+        (the same on every rank): this rank trains on its B/W rows, and the
+        loss returned is the global batch's."""
         opt = state["opt"]
         opt.zero_grad(set_to_none=True)
+        if self._synced:
+            mel_lr, mel_hr = self._local_rows(mel_lr), self._local_rows(mel_hr)
         loss = self.loss(state["model"], mel_lr, mel_hr)
         loss.backward()
+        if self._synced:
+            loss = self._average_over_ranks(state["model"], loss)
         opt.step()
         return state, loss.detach()
+
+    def _local_rows(self, x):
+        W, r = self.mesh.size, self.mesh.rank
+        if x.shape[0] % W:
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not split over {W} ranks")
+        n = x.shape[0] // W
+        return x[r * n : (r + 1) * n]
+
+    def _average_over_ranks(self, gen, loss):
+        """One all-reduce of [loss, every gradient] in parameter order; each
+        divided by W.  -> the global loss."""
+        grads = [p.grad for p in gen.parameters() if p.grad is not None]
+        flat = torch.cat([loss.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat /= self.mesh.size
+        off = 1
+        for g in grads:
+            g.copy_(flat[off : off + g.numel()].view_as(g))
+            off += g.numel()
+        return flat[0]
 
     def fit(
         self,
@@ -97,7 +163,7 @@ class NVSRTrainer:
 
         audios: list of float32 HR waveforms at 44.1 kHz (host).  Returns
         (state, losses).  Writes a checkpoint every `ckpt_every` steps when
-        `ckpt_path` is given."""
+        `ckpt_path` is given (on rank 0 alone with a mesh)."""
         from ssr_eval_tpu_torch.models.data import MelPairPipeline
 
         pipe = MelPairPipeline(crop_seconds=crop_seconds, cutoffs=cutoffs, device=self.device)
@@ -111,7 +177,8 @@ class NVSRTrainer:
             losses.append(float(loss))
             if log_every and step % log_every == 0:
                 print(f"[train] step {step} loss {losses[-1]:.4f}")
-            if ckpt_path and ckpt_every and (step + 1) % ckpt_every == 0:
+            on_rank0 = self.mesh is None or self.mesh.rank == 0
+            if ckpt_path and ckpt_every and (step + 1) % ckpt_every == 0 and on_rank0:
                 self.save(ckpt_path, state)
         return state, losses
 

@@ -34,20 +34,43 @@ class FlaxBatchNorm:
     statistics move 0.01 of the way to the batch mean and the BIASED batch
     variance (torch's own update takes the unbiased one).  flax keeps no
     batch count, so num_batches_tracked stays as loaded.  Eval mode reads the
-    running statistics as torch does."""
+    running statistics as torch does.
+
+    `sync_stats` (set by a data-parallel trainer) takes the statistics over
+    the rows of every rank of the default process group, as flax's are
+    taken over a batch sharded on "data": the per-channel mean and mean of
+    squares go through one autograd-aware all-reduce."""
+
+    sync_stats = False
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        if self.sync_stats:
+            mean, mean_sq = _global_moments(x, dims)
+        else:
+            mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+def _global_moments(x, dims):
+    """(mean, mean of squares) per channel over every rank's rows: the
+    average over ranks of each rank's own moments, which is the global
+    batch's because every rank holds as many rows (the data-parallel
+    trainer splits the global batch evenly).  At one rank the result is
+    the local moments bit for bit, so the step is the plain step's."""
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    tot = all_reduce(torch.stack([x.mean(dims), (x * x).mean(dims)])) / dist.get_world_size()
+    return tot[0], tot[1]
 
 
 class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):

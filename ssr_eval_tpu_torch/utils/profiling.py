@@ -1,7 +1,8 @@
 """Tracing and throughput accounting.
 
 - `StageTimers`: wall-clock accounting per pipeline stage, exposed by the
-  engine as ``engine.stats`` and summarized with utterances per second.
+  engine as ``engine.stats`` and summarized with utterances per second and
+  the decoders that ran ("native_batch", "python_pool").
 - `device_trace`: a `torch.profiler` trace (CPU activities, and CUDA ones
   where a card is present) written into a directory as a Chrome/TensorBoard
   trace; enabled with ``EvalEngine(..., profile_dir=...)`` or
@@ -21,6 +22,7 @@ class StageTimers:
         self.seconds = defaultdict(float)
         self.counts = defaultdict(int)
         self.utterances = 0
+        self.decoders = set()
         self._t0 = time.perf_counter()
 
     @contextlib.contextmanager
@@ -41,6 +43,7 @@ class StageTimers:
             "total_s": round(total, 4),
             "utterances": self.utterances,
             "utterances_per_s": round(self.utterances / total, 3) if total > 0 else 0.0,
+            "decoders": sorted(self.decoders),
             "stages": {
                 k: {"s": round(v, 4), "calls": self.counts[k]}
                 for k, v in sorted(self.seconds.items())

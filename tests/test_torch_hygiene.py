@@ -41,6 +41,20 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert hit is None, (path, hit and hit.group(0))
 
 
+def test_no_source_runs_make_or_loads_the_jax_packages_library():
+    """The port builds native/ssrio.cpp itself (io/build_native.py, into its
+    own _build/): `make -C native` writes into the JAX package, and the
+    library committed there is the JAX package's."""
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert "libssrio" not in text, path
+        assert re.search(r"""["']make["']""", text) is None, path
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "engine", "helper", "test", "nvsr_testee"])
 def test_entry_points_need_a_card_unless_cpu_is_asked(entry, tmp_path):
     if torch.cuda.is_available():

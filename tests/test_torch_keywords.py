@@ -1,8 +1,9 @@
 """Keyword parity of the port's SSR_Eval_Helper and EvalEngine with the JAX
 package's: a script written for the JAX package runs unchanged against the
-port with mesh=None, evaluate(multihost=...) and profile_dir=..., and what
-the port cannot do yet (a device mesh, several processes: ROADMAP.md 1.15)
-raises NotImplementedError instead of running on one rank.
+port with mesh=None or the port's own mesh (`parallel.data_mesh()`),
+evaluate(multihost=...) and profile_dir=...; a mesh of another kind (a JAX
+Mesh) raises TypeError naming data_mesh, and in a process group of 2 ranks
+evaluate shards the files and writes the JSON on rank 0 alone.
 
 The sweeps run on the CPU on the synthetic VCTK set (one speaker, two
 files, the identity testee); the variants must give the default call's
@@ -25,6 +26,7 @@ from ssr_eval_tpu_torch.harness.fixtures import ensure_synthetic_vctk, speechlik
 from ssr_eval_tpu_torch.harness.resume import process_journal_path
 from ssr_eval_tpu_torch.harness.testee import BatchedTestee
 from ssr_eval_tpu_torch.io.audio import write_wav
+from ssr_eval_tpu_torch.parallel import DataMesh, data_mesh
 
 # The JAX engine's XLA program-shape knobs: the port runs eagerly and has
 # no counterpart (ROADMAP.md 1.17).
@@ -68,11 +70,14 @@ def _helper(root, **kw):
 
 @pytest.mark.parametrize(
     "ctor,call",
-    [({"mesh": None}, {}), ({}, {"multihost": "auto"}), ({}, {"multihost": True}), ({}, {"multihost": False})],
-    ids=["mesh-none", "multihost-auto", "multihost-true", "multihost-false"],
+    [({"mesh": None}, {}), ({"mesh": "data_mesh"}, {}), ({}, {"multihost": "auto"}), ({}, {"multihost": True}),
+     ({}, {"multihost": False})],
+    ids=["mesh-none", "mesh-data", "multihost-auto", "multihost-true", "multihost-false"],
 )
 def test_single_process_keywords_give_the_default_result(vctk, tmp_path, monkeypatch, ctor, call):
     monkeypatch.chdir(tmp_path)
+    if ctor.get("mesh") == "data_mesh":  # a 1-rank mesh: no process group
+        ctor = {"mesh": data_mesh("cpu")}
     default = _helper(vctk).evaluate(limit_test_speaker=1, verbose=False)
     assert len(glob.glob("results/*.json")) == 1
     got = _helper(vctk, **ctor).evaluate(limit_test_speaker=1, verbose=False, **call)
@@ -85,26 +90,57 @@ def test_single_process_keywords_give_the_default_result(vctk, tmp_path, monkeyp
 
 @pytest.mark.parametrize("where", ["helper", "engine"])
 def test_a_mesh_raises_naming_the_roadmap_item(vctk, where):
-    mesh = object()  # any mesh: the port has no device mesh yet
-    with pytest.raises(NotImplementedError, match="1.15"):
-        if where == "helper":
-            _helper(vctk, mesh=mesh)
-        else:
-            engine.EvalEngine([], 44100, 44100, 44100, BatchedTestee(), mesh=mesh, device="cpu")
+    """A mesh that is not the port's DataMesh (a JAX Mesh, anything else)
+    raises TypeError naming data_mesh; the port's mesh runs on its device,
+    which a device of another type contradicts."""
+    from ssr_eval_tpu.parallel.mesh import data_mesh as jax_data_mesh
+
+    for mesh in (jax_data_mesh(), object()):
+        with pytest.raises(TypeError, match="data_mesh"):
+            if where == "helper":
+                _helper(vctk, mesh=mesh)
+            else:
+                engine.EvalEngine([], 44100, 44100, 44100, BatchedTestee(), mesh=mesh, device="cpu")
+    mesh = data_mesh("cpu")
+    if where == "helper":
+        assert _helper(vctk, mesh=mesh).engine.device == torch.device("cpu")
+    else:
+        eng = engine.EvalEngine([], 44100, 44100, 44100, BatchedTestee(), mesh=mesh)
+        assert eng.device == torch.device("cpu") and eng.mesh is mesh
+    card = DataMesh({"data": 1}, 0, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="contradicts"):
+        engine.EvalEngine([], 44100, 44100, 44100, BatchedTestee(), mesh=card, device="cpu")
 
 
 @pytest.mark.parametrize("multihost", ["auto", True])
 def test_several_processes_raise_before_scoring(vctk, tmp_path, monkeypatch, multihost):
-    """In a process group of 2 no rank scores every file and writes its own
-    JSON: evaluate raises first (False keeps the JAX package's meaning: each
-    process runs the whole sweep, as asked)."""
+    """Rank 1 of a process group of 2 (monkeypatched): evaluate scores only
+    its round-robin shard into its own journal, gathers rank 0's shard, and
+    returns the whole result without writing a JSON (rank 0 writes it).
+    False keeps the JAX package's meaning: every rank runs the whole sweep."""
     monkeypatch.chdir(tmp_path)
+    default = _helper(vctk).evaluate(verbose=False)
+    files = sorted(glob.glob(os.path.join(vctk, "*", "*.flac")))
+    per_file = {p: default[p.split(os.sep)[-2]][os.path.basename(p)] for p in files}
     h = _helper(vctk)
+    scored = []
+    evaluate_files = h.engine.evaluate_files
+    monkeypatch.setattr(h.engine, "evaluate_files", lambda paths: (scored.extend(paths), evaluate_files(paths))[1])
+
+    def all_gather_object(out, obj):  # rank 0 scored the other shard
+        out[:] = [{p: per_file[p] for p in files[0::2]}, obj]
+
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="1.15"):
-        h.evaluate(verbose=False, multihost=multihost)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(torch.distributed, "all_gather_object", all_gather_object)
+    os.remove(glob.glob("results/*.json")[0])
+    got = h.evaluate(verbose=False, multihost=multihost)
+    assert scored == files[1::2]
+    assert got == default
     assert not glob.glob("results/*.json")
+    with open("results/kw.partial.p1.jsonl") as f:  # rank 1's own journal
+        assert {json.loads(line)["path"] for line in f} == set(files[1::2])
     with pytest.raises(ValueError, match="multihost"):
         h.evaluate(verbose=False, multihost="yes")
 

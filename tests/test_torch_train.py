@@ -46,7 +46,7 @@ from ssr_eval_tpu.models.checkpoint import restore_variables as j_restore
 from ssr_eval_tpu_torch.harness.fixtures import speechlike
 from ssr_eval_tpu_torch.models import convert, nvsr, testees
 from ssr_eval_tpu_torch.models.data import MelPairPipeline
-from ssr_eval_tpu_torch.models.train import NVSRTrainer, adamw
+from ssr_eval_tpu_torch.models.train import NVSRTrainer, adamw, make_mesh
 from ssr_eval_tpu_torch.models.unet import UNetRes
 
 GRAD_TOL = 1e-4  # of each leaf's max|JAX grad|
@@ -366,5 +366,14 @@ def test_trainer_surface():
     a2, b2 = tr.make_batch(3, 2, t_frames=8)
     assert a.shape == b.shape == (2, 8, 128) and torch.equal(a, a2) and torch.equal(b, b2)
     assert bool((b >= a).all()) and float(a.min()) >= 1e-3
-    with pytest.raises(NotImplementedError, match="1.15"):
+    # a JAX mesh is not the port's; the port's "data" mesh runs, tp does not
+    with pytest.raises(TypeError, match="data_mesh"):
         NVSRTrainer(model_name="dnn", mesh=j_train.make_mesh(1), device="cpu")
+    with pytest.raises(NotImplementedError, match="1.15a"):
+        make_mesh(tp=2, device="cpu")
+    with pytest.raises(ValueError, match="requested 2 devices"):
+        make_mesh(2, device="cpu")  # one process, no group: one rank
+    mesh = make_mesh(device="cpu")
+    assert (mesh.shape, mesh.rank) == ({"data": 1}, 0)
+    tr = NVSRTrainer(model_name="dnn", mesh=mesh)
+    assert tr.device == torch.device("cpu") and tr.mesh is mesh
