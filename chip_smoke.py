@@ -50,12 +50,23 @@ Phases (any failure raises and the script exits non-zero):
              synthetic VCTK, 2 files per speaker) on the card: SiSpec and SSIM
              inside the golden TOL, LSD and log-SiSpec (float32 stop-band
              floors) within FLOOR_TOL of the JAX package's CPU pins.
+  utilities  on the FLAC data: run_leaderboard with the noise testee and
+             BasicTestee at 4 and 8 kHz on the card and on the CPU (rows
+             finite; the noise row within the sweep's LSD bound, the
+             identity row within FLOOR_TOL; the markdown printed; |STFT|
+             launches 3 + 4 per batch); engine_program_costs of the sweep's
+             batch program on the card and on the CPU (FLOP and bytes within
+             COST_TOL) with utilization at the sweep's s/batch beside
+             chip_peaks(); verify_real.main offline (rc 0, both stages SKIP,
+             no fetch attempted); verify_real.run_golden on the synthetic
+             VCTK set (ok false, every row finite); examples.test on the
+             synthetic set (every family's key finite).
   nvsr       the full-width NVSRTestee("unet") (65M-parameter UNet + the
              512-channel TFGAN vocoder, seeded random weights) through
              SSR_Eval_Helper.evaluate on the sweep's data at the reference's
              NVSR cutoffs (1-12 kHz), batch 16: warm-up and 2 timed runs,
-             peak memory, the model's FLOP per batch (FlopCounterMode) and a
-             profiled run; the |STFT| launch count is exact (1 target + 2
+             peak memory, the model's FLOP per batch (utils.flops.count_cost)
+             and a profiled run; the |STFT| launch count is exact (1 target + 2
              per spec per batch: NVSR.pre and the metric; 1 + 3 per spec for
              NVSRPostProcTestee, run on 4 utterances).  Card vs CPU with the
              same weights on 2 short utterances (per-pair metrics and
@@ -79,7 +90,11 @@ Phases (any failure raises and the script exits non-zero):
              fit steps (2 |STFT| launches each, the mel pairs), the
              checkpoint reloaded into NVSRTestee("unet") and run, then 10
              steps on one batch (every loss finite, the last below the
-             first), s/step, FLOP/step, peak memory and a profile.  (c)
+             first), s/step, FLOP/step, peak memory and a profile; the
+             remat step: the same step with UNetRes(remat=True) against
+             remat=False under cudnn.deterministic (loss, gradients and
+             running statistics within REMAT_TOL), peak memory and s/step
+             of both.  (c)
              VocoderTrainer(SMALL_TFGAN) in scripts/train_small_nvsr.py's
              configuration: the loss falls, 2 forward and 1 backward
              launch per step, probe_corr, the export reloaded with
@@ -90,7 +105,7 @@ Phases (any failure raises and the script exits non-zero):
              localhost port): SSR_Eval_Helper(mesh=data_mesh())
              .evaluate(multihost=True) on the FLAC data (within 1e-6 of the
              flac phase per pair, one results JSON, the rank's journal), and
-             the full-width NVSRTrainer("unet", mesh=make_mesh()) one step
+             the full-width NVSRTrainer("unet", mesh=make_mesh(tp=1)) one step
              from the plain trainer's init and batch (loss and gradients
              within DP_TOL of each leaf's max), then timed beside the train
              phase's s/step; the process group is destroyed in a finally.
@@ -234,6 +249,22 @@ TRAIN_CARD_VS_CPU = {"generator": 1.5e-3, "vocoder": 2e-5}
 # as far.  At one rank the synchronised BatchNorm averages its own
 # moments over one rank, which leaves them bit for bit (models/unet.py).
 DP_TOL = 1e-6
+# The remat step: the full-width generator step with UNetRes(remat=True)
+# against remat=False, both under cudnn.deterministic (the recomputation
+# runs the same kernels on the same inputs): loss, every gradient leaf and
+# every running statistic within REMAT_TOL of the leaf's own max; timed
+# over REMAT_STEPS steps each.
+REMAT_TOL, REMAT_STEPS = 1e-6, 5
+# The utilities phase: the leaderboard at 4 and 8 kHz on the FLAC data, the
+# noise testee beside the identity BasicTestee.  The noise testee's rows
+# are held card vs CPU to the sweep's LSD bound; the identity rows read
+# the float32 rounding floor of the masked iSTFT at the deep bands, which
+# cuFFT and the CPU's FFT leave at different levels, and are held to
+# FLOOR_TOL's LSD (tests/test_torch_utilities.py holds the same rows port
+# vs JAX so).  The engine's cost of the sweep's batch program, card vs CPU:
+# FLOP and bytes within COST_TOL.
+LEADERBOARD_KHZ = [4, 8]
+COST_TOL = 0.01
 
 
 def log(*a):
@@ -319,9 +350,9 @@ def stft_bound(B, ext_len, mf, n_fft):
     """Least time for the |STFT| call on this card: bytes (ext read once,
     magnitudes written once) vs an FFT-class operation count
     (2.5 N log2 N per frame for a real transform, 3 per bin for |.|)."""
-    n_bins = n_fft // 2 + 1
-    nbytes = 4 * (B * ext_len + B * mf * n_bins + 3 * n_fft)
-    flops = B * mf * (2.5 * n_fft * math.log2(n_fft) + 3 * n_bins)
+    from ssr_eval_tpu_torch.utils.flops import stft_magnitude_cost
+
+    flops, nbytes = stft_magnitude_cost(B, ext_len, mf, n_fft)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -467,7 +498,8 @@ def phase_sweep(work):
 
     cpu_testee, _ = noisy_testee(torch.device("cpu"))
     t = time.perf_counter()
-    cpu = ssr_eval_tpu_torch.SSR_Eval_Helper(cpu_testee, device="cpu", **kw).evaluate(verbose=False)
+    cpu_helper = ssr_eval_tpu_torch.SSR_Eval_Helper(cpu_testee, device="cpu", **kw)
+    cpu = cpu_helper.evaluate(verbose=False)
     cpu_s = time.perf_counter() - t
     pc, pg = _pairs(cpu), _pairs(card)
     if set(pc) != set(pg) or len(pg) != N_UTTS * len(CUTOFFS):
@@ -490,7 +522,7 @@ def phase_sweep(work):
         raise AssertionError(f"card LSD off the float64 oracle by {oracle['lsd']:.3e} (limit 1e-3)")
     log("[sweep] averaged:", json.dumps(card["averaged"]))
     return {"launches": launches, "root": root, "kw": kw, "card": card, "s_per_batch": best / n_batches,
-            "utt_per_s": N_UTTS / best, "decode_s": decode_s}
+            "utt_per_s": N_UTTS / best, "decode_s": decode_s, "engines": (helper.engine, cpu_helper.engine)}
 
 
 def timed_runs(helper, n=3):
@@ -945,13 +977,13 @@ def _free_card():
 def phase_nvsr(work):
     """The full-width NVSR testee through SSR_Eval_Helper on the card."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
     from ssr_eval_tpu_torch.harness.fixtures import speechlike
     from ssr_eval_tpu_torch.io.audio import write_wav
     from ssr_eval_tpu_torch.models.nvsr import get_n_params
     from ssr_eval_tpu_torch.utils.bucket import bucket_length
+    from ssr_eval_tpu_torch.utils.flops import chip_peaks, count_cost, utilization
     from ssr_eval_tpu_torch.utils.profiling import StageTimers
 
     root = os.path.join(work, "sweep_data")
@@ -991,13 +1023,14 @@ def phase_nvsr(work):
     ):
         raise AssertionError("the NVSR sweep did not score every (file, spec) pair with finite metrics")
 
-    # model FLOPs of one spec's infer_batch at the main path's shapes
+    # FLOP of one spec's infer_batch at the main path's shapes (utils.flops:
+    # FlopCounterMode's convolutions and matmuls, torch.fft ops and the
+    # |STFT| kernel by their analytic formula)
     lmax = int(UTT_SECONDS * SR)
     xb = torch.zeros(NVSR_BATCH, bucket_length(lmax), device=testee.device)
     nb = torch.full((NVSR_BATCH,), lmax, device=testee.device)
-    with FlopCounterMode(display=False) as fc:
-        testee.infer_batch(xb, nb)
-    flops_batch = fc.get_total_flops() * len(NVSR_CUTOFFS)
+    cost = count_cost(testee.infer_batch, xb, nb)
+    flops_batch = cost["flops"] * len(NVSR_CUTOFFS)
     best = min(times)
     log(
         f"[nvsr] {N_UTTS} utts x {len(NVSR_CUTOFFS)} cutoffs, batch {NVSR_BATCH}: warm-up {warm_s:.3f} s; "
@@ -1005,10 +1038,13 @@ def phase_nvsr(work):
         f"kernel launches {launches} (1 + 2 x {len(NVSR_CUTOFFS)} per batch); "
         f"max_memory_allocated {peak / 2**30:.3f} GiB"
     )
-    log(f"[nvsr] model FLOP per batch (FlopCounterMode over one spec's infer_batch at [{NVSR_BATCH}, "
-        f"{xb.shape[1]}], x {len(NVSR_CUTOFFS)} specs): {flops_batch:.4e}; at the best batch time "
+    log(f"[nvsr] model FLOP per batch (utils.flops.count_cost over one spec's infer_batch at [{NVSR_BATCH}, "
+        f"{xb.shape[1]}], x {len(NVSR_CUTOFFS)} specs): {flops_batch:.4e} (convolutions and matmuls "
+        f"{cost['matmul_conv_flops'] * len(NVSR_CUTOFFS):.4e}, torch.fft {cost['fft_flops'] * len(NVSR_CUTOFFS):.4e}, "
+        f"|STFT| kernel {cost['kernel_flops'] * len(NVSR_CUTOFFS):.4e}); at the best batch time "
         f"{flops_batch / (best / n_batches) / 1e12:.2f} TFLOP/s; fp32 peak bound "
-        f"{flops_batch / FP32_FLOP_PER_S:.4f} s/batch")
+        f"{flops_batch / FP32_FLOP_PER_S:.4f} s/batch; utilization "
+        f"{json.dumps(utilization(flops_batch, cost['bytes_accessed'] * len(NVSR_CUTOFFS), n_batches / best, chip_peaks()))}")
     log("[nvsr] stages over the 2 timed runs:", json.dumps(helper.engine.stats.summary()))
     profile_sweep(helper, tag="nvsr-profile")
     log("[nvsr] averaged:", json.dumps(card["averaged"]))
@@ -1102,10 +1138,10 @@ def bwd_bound(B, ext_len, mf, n_fft):
     """Least time for the |STFT| backward call on this card: bytes (ext and
     the upstream gradient read once, the gradient of ext written once) vs
     two FFT-class transforms per frame (2 x 2.5 N log2 N) and ~10
-    operations per bin for H = g X / |X|."""
-    n_bins = n_fft // 2 + 1
-    nbytes = 4 * (2 * B * ext_len + B * mf * n_bins + n_fft)
-    flops = B * mf * (2 * 2.5 * n_fft * math.log2(n_fft) + 10 * n_bins)
+    operations per bin for H = g X / |X| (utils.flops's formula)."""
+    from ssr_eval_tpu_torch.utils.flops import stft_magnitude_backward_cost
+
+    flops, nbytes = stft_magnitude_backward_cost(B, ext_len, mf, n_fft)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -1315,9 +1351,9 @@ def _leaf_delta(ref, got, floor):
 
 def phase_train(work):
     """NVSR training on the card: the backward kernel's checks, the
-    full-width generator, the vocoder, and card-vs-CPU gradients."""
+    full-width generator (and its remat step), the vocoder, and
+    card-vs-CPU gradients."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from ssr_eval_tpu_torch.device import resolve_device
     from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_backward_kernel, stft_magnitude_kernel
@@ -1331,6 +1367,7 @@ def phase_train(work):
     from ssr_eval_tpu_torch.models.vocoder import TFGANConfig
     from ssr_eval_tpu_torch.models.vocoder_check import probe_signal, synthesis_report
     from ssr_eval_tpu_torch.utils.bucket import bucket_length
+    from ssr_eval_tpu_torch.utils.flops import count_cost
 
     dev = resolve_device()
     bwd_shapes = phase_backward_kernel()
@@ -1385,23 +1422,24 @@ def phase_train(work):
         losses.append(float(loss))  # synchronises
         times.append(time.perf_counter() - t)
     peak = torch.cuda.max_memory_allocated()
-    with FlopCounterMode(display=False) as fc:
-        tr.step(state, mel_lr, mel_hr)
-    flops = fc.get_total_flops()
+    flops = count_cost(tr.step, state, mel_lr, mel_hr)["flops"]
     busy = profile_call(lambda: [tr.step(state, mel_lr, mel_hr) for _ in range(2)], "train-profile", keep="stft_")
     best, median = min(times), sorted(times)[len(times) // 2]
     # the profiler slows the host; against the unprofiled median step
     idle = None if busy is None else 1 - busy / 2e3 / median
     log(f"[train] fixed batch [{GEN_BATCH}, {mel_lr.shape[1]}, {mel_lr.shape[2]}], {GEN_FIXED_STEPS} steps: losses "
         f"{[round(x, 5) for x in losses]}; s/step {[round(x, 4) for x in times]} (best {best:.4f}, median "
-        f"{median:.4f}); FLOP/step (FlopCounterMode) {flops:.4e}, "
+        f"{median:.4f}); FLOP/step (utils.flops.count_cost) {flops:.4e}, "
         f"{flops / best / 1e12:.2f} TFLOP/s at the best step (fp32 peak bound {flops / FP32_FLOP_PER_S:.4f} s); "
         f"max_memory_allocated {peak / 2**30:.3f} GiB; idle share against the unprofiled median step {idle}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"the full-width generator's fixed-batch loss did not fall: {losses}")
-    del tr, state, pipe, mel_lr, mel_hr
+    del tr, state
     _free_card()
     gen_times = times
+    phase_remat(mel_lr, mel_hr, peak, median)
+    del pipe, mel_lr, mel_hr
+    _free_card()
 
     # (c) the small vocoder, then the full-width one for a few steps
     vt = VocoderTrainer(SMALL_TFGAN, learning_rate=VOC_LR)
@@ -1482,6 +1520,171 @@ def phase_train(work):
     return launches, bwd_shapes, gen_times
 
 
+def phase_remat(mel_lr, mel_hr, plain_peak, plain_median):
+    """The full-width generator step with UNetRes(remat=True) against
+    remat=False on one batch: the same numbers, less memory."""
+    import torch
+
+    from ssr_eval_tpu_torch.models.train import NVSRTrainer
+
+    def trainer(remat):
+        tr = NVSRTrainer(model_name="unet", learning_rate=GEN_LR)
+        tr.model.generator.analysis_module.remat = remat
+        return tr, tr.init_state(seed=0)
+
+    def record(state, loss):
+        gen = state["model"]
+        out = {"loss": loss.detach().reshape(1).cpu()}
+        out.update({f"grad/{k}": p.grad.detach().cpu() for k, p in gen.named_parameters()})
+        out.update({f"stats/{k}": b.detach().cpu() for k, b in gen.named_buffers() if "running" in k})
+        return out
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr, st = trainer(False)
+        want = record(*tr.step(st, mel_lr, mel_hr))
+        del tr, st
+        _free_card()
+        tr, st = trainer(True)
+        got = record(*tr.step(st, mel_lr, mel_hr))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst, leaf = _leaf_delta(want, got, 0.0)
+    n_exact = sum(torch.equal(want[k], got[k]) for k in want)
+    del want, got
+    # s/step and peak memory with remat, as the train phase measured them
+    # without (the trainer's weights, gradients and AdamW moments included)
+    tr.step(st, mel_lr, mel_hr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(REMAT_STEPS):
+        t = time.perf_counter()
+        _, loss = tr.step(st, mel_lr, mel_hr)
+        float(loss)  # synchronises
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(times)[len(times) // 2]
+    log(f"[train] remat: UNetRes(remat=True) vs remat=False, one step from seed 0 on [{GEN_BATCH}, "
+        f"{mel_lr.shape[1]}, {mel_lr.shape[2]}] (cudnn deterministic): loss, gradients and running statistics "
+        f"{worst:.3e} of the leaf's own max ({leaf}); {n_exact} leaves bit-identical")
+    log(f"[train] remat: max_memory_allocated {peak / 2**30:.3f} GiB (remat=False {plain_peak / 2**30:.3f} GiB, "
+        f"{peak / plain_peak:.3f}x); s/step {[round(x, 4) for x in times]} (median {median:.4f}; remat=False "
+        f"median {plain_median:.4f}, {median / plain_median:.3f}x)")
+    if not worst <= REMAT_TOL:
+        raise AssertionError(f"remat step off the plain step by {worst} ({leaf}, limit {REMAT_TOL})")
+    del tr, st
+
+
+def phase_utilities(work, sweep, flac):
+    """The leaderboard, the engine's FLOP/byte accounting, the real-data
+    runbook offline and on the synthetic set, and examples.test."""
+    import urllib.request
+
+    import torch
+
+    import ssr_eval_tpu_torch
+    from ssr_eval_tpu_torch import verify_real
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
+    from ssr_eval_tpu_torch.examples import test as example_test
+    from ssr_eval_tpu_torch.harness.fixtures import ensure_synthetic_vctk
+    from ssr_eval_tpu_torch.harness.leaderboard import run_leaderboard
+    from ssr_eval_tpu_torch.utils.flops import chip_peaks, engine_program_costs, utilization
+
+    n_batches = -(-N_UTTS // BATCH)
+
+    def systems(device):
+        basic = ssr_eval_tpu_torch.BasicTestee()
+        basic.device = device
+        return {"Noisy": noisy_testee(torch.device(device))[0], "Unprocessed": basic}
+
+    kw = dict(test_data_root=flac["root"], cutoffs_khz=LEADERBOARD_KHZ, batch_size=BATCH)
+    stft_magnitude_kernel.launches = 0
+    t = time.perf_counter()
+    rows, md = run_leaderboard(systems("cuda"), **kw)
+    card_s = time.perf_counter() - t
+    launches = stft_magnitude_kernel.launches
+    # the noise testee on the device: 1 + C per batch; the host testee
+    # is scored per spec against its own target: 2 C
+    want = n_batches * (1 + len(LEADERBOARD_KHZ)) + n_batches * 2 * len(LEADERBOARD_KHZ)
+    t = time.perf_counter()
+    cpu_rows, _ = run_leaderboard(systems("cpu"), device="cpu", **kw)
+    cpu_s = time.perf_counter() - t
+    delta = {name: max(abs(rows[name][c] - cpu_rows[name][c]) for c in rows[name]) for name in rows}
+    finite = all(math.isfinite(v) for r in rows.values() for v in r.values())
+    log(f"[utilities] run_leaderboard (noise testee, BasicTestee) at {LEADERBOARD_KHZ} kHz on the FLAC data: card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s; |STFT| launches {launches} (expected {want}); max |card - CPU| per "
+        f"row {json.dumps(delta)} (limits: Noisy {CARD_VS_CPU['lsd']}, Unprocessed {FLOOR_TOL['lsd']}); rows "
+        f"{json.dumps(rows)}")
+    for line in md.splitlines():
+        log(f"[utilities] {line}")
+    if (not finite or launches != want or delta["Noisy"] > CARD_VS_CPU["lsd"]
+            or delta["Unprocessed"] > FLOOR_TOL["lsd"]):
+        raise AssertionError(f"leaderboard card vs CPU failed: {delta}, launches {launches}, finite {finite}")
+
+    # the sweep's batch program, counted on the card and on the CPU
+    card_eng, cpu_eng = sweep["engines"]
+    costs, cpu_costs = engine_program_costs(card_eng), engine_program_costs(cpu_eng)
+    if not costs or set(costs) != set(cpu_costs):
+        raise AssertionError(f"engine programs differ: {sorted(costs)} vs {sorted(cpu_costs)}")
+    peaks = chip_peaks()
+    for label, c in costs.items():
+        cc = cpu_costs[label]
+        rel = {k: abs(c[k] - cc[k]) / cc[k] for k in ("flops", "bytes_accessed")}
+        u = utilization(c["flops"], c["bytes_accessed"], 1.0 / sweep["s_per_batch"], peaks)
+        log(f"[utilities] engine_program_costs {label}: {json.dumps({k: c[k] for k in sorted(c)})}; card vs CPU "
+            f"relative {json.dumps(rel)}; at the sweep's {sweep['s_per_batch']:.4f} s/batch: {json.dumps(u)}; "
+            f"chip_peaks {json.dumps(peaks)}")
+        if any(v > COST_TOL for v in rel.values()) or c["calls"] < 1:
+            raise AssertionError(f"engine cost card vs CPU off by {rel} (limit {COST_TOL})")
+
+    # the runbook offline: both stages SKIP, nothing fetched
+    fetched = []
+
+    def no_network(*a, **k):
+        fetched.append(a)
+        raise OSError("chip_smoke.py: no network")
+
+    urlopen, urllib.request.urlopen = urllib.request.urlopen, no_network
+    try:
+        report_path = os.path.join(work, "verify_real_report.json")
+        rc = verify_real.main(["--out", report_path])
+    finally:
+        urllib.request.urlopen = urlopen
+    with open(report_path) as f:
+        stages = json.load(f)["stages"]
+    log(f"[utilities] verify_real.main offline: rc {rc}, stages {json.dumps(stages)}, fetch attempts {len(fetched)}")
+    if rc != 0 or fetched or [st["status"] for st in stages.values()] != ["SKIP", "SKIP"]:
+        raise AssertionError(f"verify_real offline: rc {rc}, {stages}, {len(fetched)} fetch attempts")
+
+    # the golden stage on the synthetic VCTK set (not VCTK: ok is False)
+    vctk = ensure_synthetic_vctk(os.path.join(work, "vctk_test"), files_per_speaker=2)
+    ok, grows = verify_real.run_golden(vctk, batch_size=4)
+    log(f"[utilities] verify_real.run_golden on the synthetic VCTK set: ok {ok}, rows {json.dumps(grows)}")
+    if ok or not all(math.isfinite(r["got"]) for r in grows):
+        raise AssertionError(f"run_golden on the synthetic set: ok {ok}, rows {grows}")
+
+    # examples.test: every family on ./datasets/vctk_test (the synthetic set)
+    run_dir = os.path.join(work, "example_run")
+    ensure_synthetic_vctk(os.path.join(run_dir, "datasets", "vctk_test"), files_per_speaker=2)
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        before = stft_magnitude_kernel.launches
+        t = time.perf_counter()
+        res = example_test.test()
+        ex_s = time.perf_counter() - t
+    finally:
+        os.chdir(cwd)
+    keys = ["proc_fft_24000_44100", "proc_bw_24000_6_44100", "proc_subsampling_24000_44100", "proc_mp3_128_44100"]
+    avg = res["averaged"]
+    log(f"[utilities] examples.test on the synthetic set ({ex_s:.2f} s, |STFT| launches "
+        f"{stft_magnitude_kernel.launches - before}, mp3 codec {mp3_codec()}): averaged {json.dumps(avg)}")
+    if not all(k in avg and all(math.isfinite(avg[k][m]) for m in METRICS) for k in keys):
+        raise AssertionError(f"examples.test: keys {sorted(avg)}")
+    return launches
+
+
 def _free_port():
     import socket
 
@@ -1520,7 +1723,11 @@ def phase_parallel(work, flac, train_step_s):
         pipe = MelPairPipeline(crop_seconds=GEN_CROP, cutoffs=GEN_CUTOFFS)
         wav = pipe.random_crops(audios, np.random.default_rng(123), GEN_BATCH)
         plain = NVSRTrainer(model_name="unet", learning_rate=GEN_LR)
-        dp = NVSRTrainer(model_name="unet", learning_rate=GEN_LR, mesh=make_mesh())
+        mesh = make_mesh(tp=1)
+        dp = NVSRTrainer(model_name="unet", learning_rate=GEN_LR, mesh=mesh)
+        log(f"[parallel] make_mesh(tp=1): shape {mesh.shape}, sub-groups {sorted(mesh.groups)}; tensor "
+            "parallelism (tp = 2) is held only by the CPU gloo tests (tests/test_torch_tensor_parallel.py): "
+            "this machine has one H100, and NCCL cannot place two ranks on one card")
 
         stft_magnitude_kernel.launches = stft_magnitude_backward_kernel.launches = 0
         res = helper.evaluate(multihost=True, verbose=False)
@@ -1548,7 +1755,7 @@ def phase_parallel(work, flac, train_step_s):
         g_plain, g_dp = _grads_of(s_plain["model"]), _grads_of(s_dp["model"])
         d_grad, leaf = _leaf_delta(g_plain, g_dp, 0.0)
         d_model, leaf_model = _leaf_delta(g_plain, g_dp, 1.0)
-        log(f"[parallel] NVSRTrainer('unet', mesh=make_mesh()) vs no mesh, one step from seed 0 on one batch "
+        log(f"[parallel] NVSRTrainer('unet', mesh=make_mesh(tp=1)) vs no mesh, one step from seed 0 on one batch "
             f"[{GEN_BATCH}, {mel_lr.shape[1]}, {mel_lr.shape[2]}] (cudnn deterministic): loss {float(loss_dp):.7f} "
             f"vs {float(loss_plain):.7f} (relative {d_loss:.3e}); gradients {d_grad:.3e} of the leaf's own max "
             f"({leaf}), {d_model:.3e} of the model's largest ({leaf_model}); |STFT| launches on the path {launches} "
@@ -1619,6 +1826,7 @@ def main():
             phase_invariance(work)
             launches["matrix"] = phase_matrix(work)
             launches["families"] = phase_families(work)
+            launches["leaderboard"] = phase_utilities(work, sweep, flac)
             launches["nvsr"] = phase_nvsr(work)
             train_launches, bwd_shapes, gen_times = phase_train(work)
             launches["parallel"] = phase_parallel(work, flac, gen_times)

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ssr_eval_tpu_torch.utils.flops import analytic_cost, stft_magnitude_backward_cost, stft_magnitude_cost
+
 MAX_N_FFT = 4096
 
 
@@ -172,23 +174,25 @@ def stft_magnitude_kernel(
 
 def _forward(ext, n_fft, hop, max_frames, window):
     """The forward with no graph: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor (arguments checked by the caller)."""
-    if ext.device.type == "cpu":
-        return stft_magnitude_plain(ext, n_fft, hop, max_frames, window)
-    if ext.device.type != "cuda":
+    version on a CPU tensor (arguments checked by the caller).  Inside a
+    `utils.flops.count_cost` run either reports the same analytic cost."""
+    if ext.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stft_magnitude_kernel runs on cuda or cpu, not {ext.device}")
-    fn = _launcher()
     rows = ext.reshape(-1, ext.shape[-1])
-    n_bins = n_fft // 2 + 1
-    out = torch.empty(rows.shape[0], max_frames, n_bins, device=ext.device, dtype=torch.float32)
-    fft_len, tw, tab_a, tab_b = _tables(n_fft, ext.device)
-    with torch.cuda.device(ext.device):
-        stream = torch.cuda.current_stream(ext.device).cuda_stream
-        rc = fn(
-            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(),
-            None if tab_b is None else tab_b.data_ptr(), out.data_ptr(),
-            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, stream,
-        )
+    with analytic_cost(*stft_magnitude_cost(rows.shape[0], rows.shape[1], max_frames, n_fft)):
+        if ext.device.type == "cpu":
+            return stft_magnitude_plain(ext, n_fft, hop, max_frames, window)
+        fn = _launcher()
+        n_bins = n_fft // 2 + 1
+        out = torch.empty(rows.shape[0], max_frames, n_bins, device=ext.device, dtype=torch.float32)
+        fft_len, tw, tab_a, tab_b = _tables(n_fft, ext.device)
+        with torch.cuda.device(ext.device):
+            stream = torch.cuda.current_stream(ext.device).cuda_stream
+            rc = fn(
+                rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(),
+                None if tab_b is None else tab_b.data_ptr(), out.data_ptr(),
+                rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"stft_magnitude kernel launch failed: CUDA error {rc}")
     stft_magnitude_kernel.launches += 1
@@ -268,15 +272,16 @@ def _backward(ext, grad_mag, n_fft, hop, max_frames, window, seg_frames):
     fn = _backward_launcher()
     rows = ext.reshape(-1, ext.shape[-1])
     gm = grad_mag.contiguous()
-    out = torch.empty_like(rows)
-    fft_len, tw, tab_a, tab_b = _tables(n_fft, ext.device)
-    with torch.cuda.device(ext.device):
-        stream = torch.cuda.current_stream(ext.device).cuda_stream
-        rc = fn(
-            rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(),
-            None if tab_b is None else tab_b.data_ptr(), gm.data_ptr(), out.data_ptr(),
-            rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, seg_frames, stream,
-        )
+    with analytic_cost(*stft_magnitude_backward_cost(rows.shape[0], rows.shape[1], max_frames, n_fft)):
+        out = torch.empty_like(rows)
+        fft_len, tw, tab_a, tab_b = _tables(n_fft, ext.device)
+        with torch.cuda.device(ext.device):
+            stream = torch.cuda.current_stream(ext.device).cuda_stream
+            rc = fn(
+                rows.data_ptr(), window.data_ptr(), tw.data_ptr(), tab_a.data_ptr(),
+                None if tab_b is None else tab_b.data_ptr(), gm.data_ptr(), out.data_ptr(),
+                rows.shape[0], rows.shape[1], n_fft, hop, max_frames, fft_len, seg_frames, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"stft_magnitude backward kernel launch failed: CUDA error {rc}")
     stft_magnitude_backward_kernel.launches += 1

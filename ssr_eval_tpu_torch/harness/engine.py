@@ -36,6 +36,9 @@ SSR_EVAL_TPU_PROFILE) writes a torch.profiler trace of each
 `evaluate_files` call.  The JAX engine's XLA program-shape knobs
 (`infer_fold_max`, `mega_batches`, `wire_codec`, `spec_unroll`,
 `spec_flat`, `spec_single`) have no counterpart: the port runs eagerly.
+As the JAX engine does, it records each distinct batch program's key,
+argument shapes and call count (`_cost_args`, `_cost_calls`), which
+`utils.flops.engine_program_costs` reads.
 
 Batches are padded to a fixed size with copies of their first row; padding
 rows are dropped at collation.  Every per-utterance computation is
@@ -74,6 +77,7 @@ from ssr_eval_tpu_torch.metrics.kernels import (
 )
 from ssr_eval_tpu_torch.parallel.mesh import as_data_mesh, mesh_device
 from ssr_eval_tpu_torch.utils.bucket import bucket_length
+from ssr_eval_tpu_torch.utils.flops import abstract_args
 from ssr_eval_tpu_torch.utils.profiling import StageTimers, device_trace
 
 METRIC_KEYS = ("lsd", "log_sispec", "sispec", "ssim")
@@ -141,6 +145,10 @@ class EvalEngine:
         self.device_testee = hasattr(testee, "infer_batch")
         self._weights = {}  # plan key -> device copy of its Wd
         self._state = (None, None)  # (testee's state, its device copy)
+        # Each distinct batch program dispatched: key -> (fn, argument
+        # shapes and dtypes), and key -> calls (utils.flops.engine_program_costs).
+        self._cost_args = {}
+        self._cost_calls = {}
 
     # ------------------------------------------------------------------
     # Device constants
@@ -222,6 +230,13 @@ class EvalEngine:
             if want_audio:
                 audio.append((ye, ne))
         return torch.stack(rows), (audio if want_audio else None)
+
+    def _record_cost(self, key, fn, args):
+        """Remember a dispatched program's argument shapes (no buffer
+        references) and count its calls."""
+        if key not in self._cost_args:
+            self._cost_args[key] = (fn, abstract_args(args))
+        self._cost_calls[key] = self._cost_calls.get(key, 0) + 1
 
     def _score_batch(self, y, ny, gt, n_gt):
         """Resample a testee's output batch to the evaluation rate and score
@@ -482,6 +497,7 @@ class EvalEngine:
                 futs = self._mp3_submit(codec_ex, paths, idxs, spec, x_in_h, n_in_h, n_real)
                 mp3_pending.append((idxs, spec, futs, x_in_h.shape, n_in_h, gt, n_gt, n_real))
             if self.device_testee and self.device_specs:
+                self._record_cost(("fused", tuple(self.groups), sr, b), self._fused_batch, (x_in, n_in, gt, n_gt))
                 mstack, audio = self._fused_batch(x_in, n_in, gt, n_gt)
                 gt_pair = (gt, n_gt) if self.metrics_backend == "host_float64" else None
                 pending.append((idxs, mstack, audio, n_real, gt_pair))

@@ -18,18 +18,25 @@ package's `.npz` variables tree ({"params": {"generator": ...},
 "batch_stats": {"generator": ...}}, `convert.flax_from_nvsr_state`), which
 `NVSRTestee.load_generator_checkpoint` and the JAX package both read.
 
-`mesh` (`make_mesh()`): data parallelism over the ranks of the default
-torch.distributed process group, one card per process.  Every rank holds the
-whole model and is given the whole global batch; it takes its B/W rows,
-and one all-reduce per step, in a fixed order after `backward`, averages
-the gradients (and the loss) over the W ranks.  The BatchNorms take their
+`mesh` (`make_mesh(tp=...)`): the JAX trainer's ("data", "model") mesh
+over the ranks of the default torch.distributed process group, one card
+per process, rank = d * tp + m.  Every rank is given the whole global
+batch and takes the B/dp rows of its data index d; one all-reduce per
+step over its "data" group, in a fixed order after `backward`, averages
+the gradients (and the loss) over the dp ranks.  The BatchNorms take their
 statistics over the global batch, as flax's do over a batch sharded on
 "data": each averages its per-channel mean and mean of squares over the
-ranks through the autograd-aware `torch.distributed.nn.functional.all_reduce`
-(every rank holds B/W rows), so the forward, the backward and the running
-statistics are the one-process step's on the whole batch.  The JAX
-trainer's "model" axis (tensor parallelism over output channels) is not
-ported: ROADMAP.md 1.15a.
+data group through the autograd-aware
+`torch.distributed.nn.functional.all_reduce` (every rank holds B/dp rows),
+so the forward, the backward and the running statistics are the
+one-process step's on the whole batch.  With tp > 1 the generator's wide
+weights are sharded over "model" by output channel
+(`models/tensor_parallel.py`, the JAX `param_sharding` rule; the bigru
+generator's GRU stays replicated), and AdamW keeps each rank's slices
+only; checkpoints gather them back to the plain trainer's names and
+shapes.  tp defaults to 1, not to the JAX package's 2 when it divides the
+device count: a 65M-parameter conv net gains nothing from an NCCL gather
+per convolution, and either layout gives the same numbers.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ import torch
 import torch.distributed as dist
 
 from ssr_eval_tpu_torch.models.nvsr import NVSR, init_weights, to_log
+from ssr_eval_tpu_torch.models.tensor_parallel import full_state_dict, shard_generator
 from ssr_eval_tpu_torch.models.unet import FlaxBatchNorm
-from ssr_eval_tpu_torch.parallel.mesh import DataMesh, as_data_mesh, data_mesh, mesh_device
+from ssr_eval_tpu_torch.parallel.mesh import DataMesh, as_data_mesh, device_mesh, group_rank_and_size, mesh_device
 
 
 def adamw(params, learning_rate):
@@ -49,26 +57,23 @@ def adamw(params, learning_rate):
 
 
 def make_mesh(n_devices=None, tp=None, device=None) -> DataMesh:
-    """The trainer's mesh: the "data" axis over the default process group's
-    ranks (`parallel.data_mesh(device)`).
+    """The trainer's ("data", "model") mesh over the default process
+    group's ranks (`parallel.device_mesh(tp, device)`; every rank calls it,
+    in the same order).
 
     n_devices: the ranks expected; a group of another size raises (one card
     per process: start that many processes, each calling
-    `parallel.multihost.init_distributed`).  tp: the JAX package's "model"
-    axis.  It defaults to 1 here (the JAX package takes 2 when it divides
-    the device count); tp > 1 raises NotImplementedError (ROADMAP.md
-    1.15a)."""
-    if tp is not None and tp > 1:
-        raise NotImplementedError(
-            f"make_mesh(tp={tp}): tensor parallelism over output channels is not ported (ROADMAP.md 1.15a)"
-        )
-    mesh = data_mesh(device)
-    if n_devices is not None and n_devices != mesh.size:
+    `parallel.multihost.init_distributed`).  tp: the "model" axis; None is
+    1 (the JAX package takes 2 when it divides the device count; see the
+    module docstring).  A world size that tp does not divide raises
+    ValueError."""
+    world = group_rank_and_size()[1]
+    if n_devices is not None and n_devices != world:
         raise ValueError(
-            f"make_mesh: requested {n_devices} devices but the process group has {mesh.size} rank(s), one "
+            f"make_mesh: requested {n_devices} devices but the process group has {world} rank(s), one "
             "card each: start that many processes and call parallel.multihost.init_distributed in each"
         )
-    return mesh
+    return device_mesh(1 if tp is None else int(tp), device)
 
 
 class NVSRTrainer:
@@ -104,6 +109,9 @@ class NVSRTrainer:
             for m in gen.modules():
                 if isinstance(m, FlaxBatchNorm):
                     m.sync_stats = True
+                    m.stats_group = self.mesh.groups.get("data")
+            if self.mesh.tp > 1:
+                shard_generator(gen, self.mesh)
         return {"model": gen, "opt": adamw(gen.parameters(), self.learning_rate)}
 
     @staticmethod
@@ -114,8 +122,8 @@ class NVSRTrainer:
     def step(self, state, mel_lr, mel_hr):
         """One AdamW step on a batch [B, T, M] -> (state, loss as a 0-d
         tensor on the device).  With a mesh the batch is the global one
-        (the same on every rank): this rank trains on its B/W rows, and the
-        loss returned is the global batch's."""
+        (the same on every rank): this rank trains on the B/dp rows of its
+        data index, and the loss returned is the global batch's."""
         opt = state["opt"]
         opt.zero_grad(set_to_none=True)
         if self._synced:
@@ -128,18 +136,18 @@ class NVSRTrainer:
         return state, loss.detach()
 
     def _local_rows(self, x):
-        W, r = self.mesh.size, self.mesh.rank
+        W, r = self.mesh.size, self.mesh.data_rank
         if x.shape[0] % W:
-            raise ValueError(f"a global batch of {x.shape[0]} rows does not split over {W} ranks")
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not split over {W} data ranks")
         n = x.shape[0] // W
         return x[r * n : (r + 1) * n]
 
     def _average_over_ranks(self, gen, loss):
-        """One all-reduce of [loss, every gradient] in parameter order; each
-        divided by W.  -> the global loss."""
+        """One all-reduce over the data group of [loss, every gradient] in
+        parameter order; each divided by dp.  -> the global loss."""
         grads = [p.grad for p in gen.parameters() if p.grad is not None]
         flat = torch.cat([loss.detach().reshape(1)] + [g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.mesh.groups.get("data"))
         flat /= self.mesh.size
         off = 1
         for g in grads:
@@ -163,7 +171,8 @@ class NVSRTrainer:
 
         audios: list of float32 HR waveforms at 44.1 kHz (host).  Returns
         (state, losses).  Writes a checkpoint every `ckpt_every` steps when
-        `ckpt_path` is given (on rank 0 alone with a mesh)."""
+        `ckpt_path` is given (rank 0 writes it; with a mesh every rank takes
+        part in gathering the sharded weights)."""
         from ssr_eval_tpu_torch.models.data import MelPairPipeline
 
         pipe = MelPairPipeline(crop_seconds=crop_seconds, cutoffs=cutoffs, device=self.device)
@@ -177,22 +186,28 @@ class NVSRTrainer:
             losses.append(float(loss))
             if log_every and step % log_every == 0:
                 print(f"[train] step {step} loss {losses[-1]:.4f}")
-            on_rank0 = self.mesh is None or self.mesh.rank == 0
-            if ckpt_path and ckpt_every and (step + 1) % ckpt_every == 0 and on_rank0:
+            if ckpt_path and ckpt_every and (step + 1) % ckpt_every == 0:
                 self.save(ckpt_path, state)
         return state, losses
 
     def variables(self, state) -> dict:
-        """The generator's weights as the JAX package's variables tree."""
+        """The generator's weights as the JAX package's variables tree, the
+        sharded weights gathered to their full shapes (with a mesh every
+        rank must call it)."""
         from ssr_eval_tpu_torch.models.convert import flax_from_nvsr_state
 
-        return flax_from_nvsr_state({f"generator.{k}": v for k, v in state["model"].state_dict().items()})
+        return flax_from_nvsr_state({f"generator.{k}": v for k, v in full_state_dict(state["model"]).items()})
 
-    def save(self, path: str, state) -> str:
-        """Write the generator's `.npz` checkpoint; returns its path."""
+    def save(self, path: str, state) -> str | None:
+        """Write the generator's `.npz` checkpoint; returns its path.  With
+        a mesh every rank calls it (the gather) and rank 0 alone writes;
+        the other ranks return None."""
         from ssr_eval_tpu_torch.models.checkpoint import save_variables
 
-        return save_variables(path, self.variables(state))
+        variables = self.variables(state)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
+        return save_variables(path, variables)
 
     def make_batch(self, seed, batch, t_frames=64, n_mels=128):
         """A synthetic (mel_lr, mel_hr) batch made with NumPy from `seed`:

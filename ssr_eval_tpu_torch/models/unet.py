@@ -20,11 +20,13 @@ told its input width.  Every BatchNorm trains as flax's does
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class FlaxBatchNorm:
@@ -37,11 +39,20 @@ class FlaxBatchNorm:
     running statistics as torch does.
 
     `sync_stats` (set by a data-parallel trainer) takes the statistics over
-    the rows of every rank of the default process group, as flax's are
-    taken over a batch sharded on "data": the per-channel mean and mean of
-    squares go through one autograd-aware all-reduce."""
+    the rows of every rank of `stats_group` (None: the default process
+    group; the trainer's mesh gives its "data" axis), as flax's are taken
+    over a batch sharded on "data": the per-channel mean and mean of
+    squares go through one autograd-aware all-reduce.
+
+    `recomputing` is set while `UNetRes(remat=True)` recomputes a group's
+    forward for the backward: the running statistics then stay as the
+    first pass left them (flax's remat keeps the primal pass's
+    `batch_stats` only).  The moments themselves are recomputed, their
+    all-reduce included, as jax.checkpoint recomputes a psum."""
 
     sync_stats = False
+    stats_group = None
+    recomputing = False
 
     def forward(self, x):
         if not self.training:
@@ -49,28 +60,47 @@ class FlaxBatchNorm:
         dims = [0, *range(2, x.dim())]
         shape = [1, -1] + [1] * (x.dim() - 2)
         if self.sync_stats:
-            mean, mean_sq = _global_moments(x, dims)
+            mean, mean_sq = _global_moments(x, dims, self.stats_group)
         else:
             mean, mean_sq = x.mean(dims), (x * x).mean(dims)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+        if not self.recomputing:
+            self._update_running(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
 
-def _global_moments(x, dims):
-    """(mean, mean of squares) per channel over every rank's rows: the
-    average over ranks of each rank's own moments, which is the global
-    batch's because every rank holds as many rows (the data-parallel
-    trainer splits the global batch evenly).  At one rank the result is
-    the local moments bit for bit, so the step is the plain step's."""
+
+def _global_moments(x, dims, group=None):
+    """(mean, mean of squares) per channel over the rows of every rank of
+    `group` (None: the default group): the average over ranks of each
+    rank's own moments, which is the global batch's because every rank
+    holds as many rows (the data-parallel trainer splits the global batch
+    evenly).  At one rank the result is the local moments bit for bit, so
+    the step is the plain step's."""
     import torch.distributed as dist
     from torch.distributed.nn.functional import all_reduce
 
-    tot = all_reduce(torch.stack([x.mean(dims), (x * x).mean(dims)])) / dist.get_world_size()
+    group = dist.group.WORLD if group is None else group
+    tot = all_reduce(torch.stack([x.mean(dims), (x * x).mean(dims)]), group=group) / dist.get_world_size(group)
     return tot[0], tot[1]
+
+
+@contextlib.contextmanager
+def _recomputing(module):
+    """Mark every FlaxBatchNorm inside `module` as recomputing."""
+    bns = [m for m in module.modules() if isinstance(m, FlaxBatchNorm)]
+    for m in bns:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.recomputing = False
 
 
 class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
@@ -143,7 +173,15 @@ class DecoderGroup(nn.Module):
 
 
 class UNetRes(nn.Module):
-    """UNet over [B, C, T, F] log-mel images -> {"mel": [B, C, T, F]}."""
+    """UNet over [B, C, T, F] log-mel images -> {"mel": [B, C, T, F]}.
+
+    `remat=True` recomputes each encoder/decoder group's forward during the
+    backward (`torch.utils.checkpoint`, non-reentrant) instead of holding
+    its activations, as the JAX package's `nn.remat` over `EncoderGroup` /
+    `DecoderGroup` does: the same loss, gradients and running statistics,
+    less memory, about one more forward of the groups.  It acts in train
+    mode with gradients enabled; nothing in the generator or trainer sets
+    it."""
 
     def __init__(
         self,
@@ -151,8 +189,10 @@ class UNetRes(nn.Module):
         widths: Sequence[int] = (32, 64, 128, 256, 384, 384),
         blocks_per_group: int = 4,
         fold_bn: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.widths = tuple(widths)
         in_ch = channels
         for i, w in enumerate(self.widths):
@@ -175,15 +215,24 @@ class UNetRes(nn.Module):
 
         skips = []
         for i in range(len(self.widths)):
-            h, skip = getattr(self, f"encoder_block{i + 1}")(h)
+            h, skip = self._group(getattr(self, f"encoder_block{i + 1}"), h)
             skips.append(skip)
         h = self.conv_block7(h)
         for i in range(len(self.widths)):
-            h = getattr(self, f"decoder_block{i + 1}")(h, skips[-(i + 1)])
+            h = self._group(getattr(self, f"decoder_block{i + 1}"), h, skips[-(i + 1)])
         h = self.after_conv2(self.after_conv_block1(h)).to(torch.float32)
 
         h = F.pad(h, (0, 1))  # restore the frequency bin
         return {"mel": h[:, :, :origin_len, :]}
+
+
+    def _group(self, group, *args):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return group(*args)
+        return checkpoint(
+            group, *args, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), _recomputing(group)),
+        )
 
 
 def UNetResComplex_100Mb(channels: int = 1, **kw):

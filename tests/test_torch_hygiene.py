@@ -55,13 +55,31 @@ def test_no_source_runs_make_or_loads_the_jax_packages_library():
         assert re.search(r"""["']make["']""", text) is None, path
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "engine", "helper", "test", "nvsr_testee"])
-def test_entry_points_need_a_card_unless_cpu_is_asked(entry, tmp_path):
+@pytest.mark.parametrize(
+    "entry",
+    ["resolve_device", "engine", "helper", "test", "nvsr_testee", "leaderboard", "verify_real", "example_test",
+     "example_nvsr_main", "example_train_nvsr", "make_mesh", "chip_peaks"],
+)
+def test_entry_points_need_a_card_unless_cpu_is_asked(entry, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
+    from ssr_eval_tpu_torch import verify_real
+    from ssr_eval_tpu_torch.examples import nvsr_main, train_nvsr
+    from ssr_eval_tpu_torch.examples import test as example_test
+    from ssr_eval_tpu_torch.harness.leaderboard import run_leaderboard
     from ssr_eval_tpu_torch.models.testees import NVSRTestee
+    from ssr_eval_tpu_torch.models.train import make_mesh
+    from ssr_eval_tpu_torch.utils.flops import chip_peaks
 
+    monkeypatch.chdir(tmp_path)
     calls = {
+        "leaderboard": lambda: run_leaderboard({"x": BatchedTestee()}, str(tmp_path), cutoffs_khz=[4]),
+        "verify_real": lambda: verify_real.main(["--out", str(tmp_path / "report.json")]),
+        "example_test": lambda: example_test.test(),
+        "example_nvsr_main": lambda: nvsr_main.main(),
+        "example_train_nvsr": lambda: train_nvsr.main(steps=1),
+        "make_mesh": lambda: make_mesh(),
+        "chip_peaks": lambda: chip_peaks(),
         "nvsr_testee": lambda: NVSRTestee(model_name="dnn"),
         "resolve_device": lambda: resolve_device(),
         "engine": lambda: EvalEngine([], 44100, 44100, 44100, BatchedTestee()),

@@ -366,14 +366,15 @@ def test_trainer_surface():
     a2, b2 = tr.make_batch(3, 2, t_frames=8)
     assert a.shape == b.shape == (2, 8, 128) and torch.equal(a, a2) and torch.equal(b, b2)
     assert bool((b >= a).all()) and float(a.min()) >= 1e-3
-    # a JAX mesh is not the port's; the port's "data" mesh runs, tp does not
+    # a JAX mesh is not the port's; the port's ("data", "model") mesh runs,
+    # and a model axis the one-process world does not split into raises
     with pytest.raises(TypeError, match="data_mesh"):
         NVSRTrainer(model_name="dnn", mesh=j_train.make_mesh(1), device="cpu")
-    with pytest.raises(NotImplementedError, match="1.15a"):
+    with pytest.raises(ValueError, match="tp=2 does not divide"):
         make_mesh(tp=2, device="cpu")
     with pytest.raises(ValueError, match="requested 2 devices"):
         make_mesh(2, device="cpu")  # one process, no group: one rank
     mesh = make_mesh(device="cpu")
-    assert (mesh.shape, mesh.rank) == ({"data": 1}, 0)
+    assert (mesh.shape, mesh.rank) == ({"data": 1, "model": 1}, 0)
     tr = NVSRTrainer(model_name="dnn", mesh=mesh)
     assert tr.device == torch.device("cpu") and tr.mesh is mesh
