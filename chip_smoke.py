@@ -101,6 +101,23 @@ Phases (any failure raises and the script exits non-zero):
              load_vocoder_checkpoint(check=False); the full-width vocoder
              timed.  (d) one step's gradients on the card vs the CPU for the
              small UNet generator and the small vocoder (TRAIN_CARD_VS_CPU).
+  train_small
+             ssr_eval_tpu_torch/examples/train_small_nvsr.py's recipe (that of
+             scripts/train_small_nvsr.py) on the card into a temporary
+             directory: SMALL_TFGAN trained in chunks of 500 steps up to
+             TRAIN_SMALL_STEPS[0] (the checked-in train_report.json's 3000),
+             stopping at probe correlation 0.65, then the dnn generator for
+             TRAIN_SMALL_STEPS[1] steps (300), both written and reassembled
+             through NVSRTestee's loaders with the vocoder check on (corr >
+             0.5, no unmatched tensors).  Both losses fall (mean of the first
+             5 steps above the last 5's); the |STFT| launch counts are exact
+             (forward: 2 per vocoder step, 2 per probe, 2 per generator step,
+             4 for the two sanity reports; backward: 1 per vocoder step); the
+             card-trained NVSRPostProcTestee beats the identity testee's LSD
+             at every TRAINED_CUTOFFS cutoff through SSR_Eval_Helper, printed
+             beside the JAX-trained examples/trained_small's; the card-trained
+             NVSRTestee's waveforms on the card and on the CPU within
+             NVSR_CARD_VS_CPU["wave"].
   parallel   init_distributed over NCCL at world size 1 (tcp on a free
              localhost port): SSR_Eval_Helper(mesh=data_mesh())
              .evaluate(multihost=True) on the FLAC data (within 1e-6 of the
@@ -194,6 +211,9 @@ NVSR_BF16_LSD = 0.5  # per pair, tests/test_models.py::test_bf16_inference_mode
 # JAX package's 0.5 alone would pass a bf16 path that was badly wrong.
 NVSR_BF16 = {"lsd": 2e-3, "log_sispec": 0.6, "sispec": 0.1, "ssim": 2e-4}
 TRAINED_CUTOFFS = [2000, 4000, 6000]  # doubled by the helper: tests/test_trained_small.py:38
+# The train_small phase: (vocoder step cap, generator steps) of the recipe,
+# scripts/train_small_nvsr.py's counts for the checked-in artifacts.
+TRAIN_SMALL_STEPS = (3000, 300)
 # The train phase.  The |STFT| backward kernel's shapes: the vocoder loss's
 # [4, 36 frames] (0.35 s crops: 35 conditioning frames -> 15,435 synthesized
 # samples -> 36), [16, 604 frames] and 512/128, and the kernel phase's 48 kHz
@@ -1089,7 +1109,7 @@ def phase_nvsr(work):
     del cpu_testee
     _free_card()
 
-    phase_nvsr_trained(short)
+    trained_lsd = phase_nvsr_trained(short)
 
     # bf16 against this fp32 run on the sweep data
     bf = _nvsr_testee("NVSRTestee", dtype=torch.bfloat16)
@@ -1108,7 +1128,7 @@ def phase_nvsr(work):
         raise AssertionError(f"bf16 off fp32 by {d_bf} (limits {NVSR_BF16}, LSD {NVSR_BF16_LSD}; finite={finite})")
     del bf, bf_helper, testee, helper
     _free_card()
-    return launches
+    return launches, trained_lsd
 
 
 def phase_nvsr_trained(root):
@@ -1132,6 +1152,7 @@ def phase_nvsr_trained(root):
         f"LSD (trained, identity) per cutoff {json.dumps(lsd)}")
     if unmatched or rep["corr"] <= 0.5 or len(lsd) != len(TRAINED_CUTOFFS) or not all(a < b for a, b in lsd.values()):
         raise AssertionError(f"trained_small on the card failed: {lsd}, {rep}, unmatched {unmatched}")
+    return lsd
 
 
 def bwd_bound(B, ext_len, mf, n_fft):
@@ -1520,6 +1541,78 @@ def phase_train(work):
     return launches, bwd_shapes, gen_times
 
 
+def phase_train_small(work, jax_trained_lsd):
+    """The small NVSR trained on the card by the port's recipe, then
+    scored as the JAX-trained artifacts are."""
+    import torch
+
+    import ssr_eval_tpu_torch
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_backward_kernel, stft_magnitude_kernel
+    from ssr_eval_tpu_torch.examples.train_small_nvsr import VOCODER_CHUNK, train_small_nvsr
+    from ssr_eval_tpu_torch.harness.fixtures import speechlike
+    from ssr_eval_tpu_torch.models.testees import NVSRPostProcTestee, NVSRTestee
+    from ssr_eval_tpu_torch.utils.bucket import bucket_length
+
+    out = os.path.join(work, "train_small")
+    v_cap, g_steps = TRAIN_SMALL_STEPS
+    stft_magnitude_kernel.launches = stft_magnitude_backward_kernel.launches = 0
+    t = time.perf_counter()
+    res = train_small_nvsr(out, v_cap, g_steps, check=True, log_every=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t
+    launches = {"train_small": stft_magnitude_kernel.launches,
+                "train_small_backward": stft_magnitude_backward_kernel.launches}
+    v_run, chunks = res["report"]["vocoder_steps_run"], len(res["probe_corr"])
+    want = {"train_small": 2 * v_run + 2 * chunks + 2 * g_steps + 4, "train_small_backward": v_run}
+    vl, gl = res["vocoder_losses"], res["generator_losses"]
+    falls = {k: (float(np.mean(x[:5])), float(np.mean(x[-5:]))) for k, x in (("vocoder", vl), ("generator", gl))}
+    sec = res["seconds"]
+    rep = res["report"]["vocoder_sanity"]
+    log(f"[train_small] recipe on the card in {total_s:.2f} s: vocoder {v_run} steps (cap {v_cap}, chunks of "
+        f"{VOCODER_CHUNK}) in {sec['vocoder']:.2f} s ({sec['vocoder'] / v_run:.4f} s/step, probe included), probe_corr "
+        f"after each chunk {json.dumps(res['probe_corr'])}; generator {g_steps} steps in {sec['generator']:.2f} s "
+        f"({sec['generator'] / g_steps:.4f} s/step); loss mean of the first / last 5 steps {json.dumps(falls)}, "
+        f"final vocoder {vl[-1]:.5f}, generator {gl[-1]:.5f}; assembled with the vocoder check on: "
+        f"{json.dumps(rep)}; |STFT| launches {json.dumps(launches)} (expected {json.dumps(want)})")
+    if launches != want or not all(math.isfinite(x) for x in vl + gl) or not all(b < a for a, b in falls.values()):
+        raise AssertionError(f"train_small: losses {falls} or launches {launches} (expected {want}) are off")
+
+    # the card-trained post-processing testee against the identity testee,
+    # on the data phase_nvsr_trained scored the JAX-trained artifacts on
+    short = os.path.join(work, "nvsr_short")
+    pp = NVSRPostProcTestee(model_name="dnn")
+    pp.load_generator_checkpoint(res["paths"]["generator"])
+    unmatched = pp.load_vocoder_checkpoint(res["paths"]["vocoder"], check=True)
+    got = _nvsr_helper(pp, short, TRAINED_CUTOFFS, 2, name="chip_train_small").evaluate(verbose=False)
+    ident = _nvsr_helper(ssr_eval_tpu_torch.BatchedTestee(), short, TRAINED_CUTOFFS, 2,
+                         name="chip_train_small_identity").evaluate(verbose=False)
+    lsd = {k: (got["averaged"][k]["lsd"], ident["averaged"][k]["lsd"]) for k in ident["averaged"]}
+    log(f"[train_small] LSD per cutoff (card-trained, identity): {json.dumps(lsd)}; the JAX-trained "
+        f"examples/trained_small (trained, identity): {json.dumps(jax_trained_lsd)}")
+    if unmatched or len(lsd) != len(TRAINED_CUTOFFS) or not all(a < b for a, b in lsd.values()):
+        raise AssertionError(f"the card-trained testee does not beat the identity testee: {lsd}, unmatched {unmatched}")
+
+    # the card-trained testee on the card and on the CPU
+    cpu = NVSRTestee(model_name="dnn", device="cpu")
+    cpu.load_generator_checkpoint(res["paths"]["generator"])
+    cpu.load_vocoder_checkpoint(res["paths"]["vocoder"], check=False)
+    n = int(NVSR_SHORT_SECONDS * SR)
+    x = np.zeros((2, bucket_length(n)), np.float32)
+    for i in range(2):
+        x[i, :n] = speechlike(NVSR_SHORT_SECONDS, SR, seed=6000 + i)
+    card = res["testee"]
+    y_card, _ = card.infer_batch(torch.from_numpy(x).to(card.device), torch.full((2,), n, device=card.device))
+    y_cpu, _ = cpu.infer_batch(torch.from_numpy(x), torch.full((2,), n))
+    wave = ((y_card.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    log(f"[train_small] card vs CPU, the card-trained NVSRTestee on 2 x {NVSR_SHORT_SECONDS} s: max |dwave| / max "
+        f"|wave| {wave:.3e} (limit {NVSR_CARD_VS_CPU['wave']})")
+    if not wave <= NVSR_CARD_VS_CPU["wave"] or not bool(torch.isfinite(y_card).all()):
+        raise AssertionError(f"the card-trained testee: card vs CPU {wave}")
+    del pp, cpu, card, res
+    _free_card()
+    return launches
+
+
 def phase_remat(mel_lr, mel_hr, plain_peak, plain_median):
     """The full-width generator step with UNetRes(remat=True) against
     remat=False on one batch: the same numbers, less memory."""
@@ -1827,8 +1920,9 @@ def main():
             launches["matrix"] = phase_matrix(work)
             launches["families"] = phase_families(work)
             launches["leaderboard"] = phase_utilities(work, sweep, flac)
-            launches["nvsr"] = phase_nvsr(work)
+            launches["nvsr"], jax_trained_lsd = phase_nvsr(work)
             train_launches, bwd_shapes, gen_times = phase_train(work)
+            launches.update(phase_train_small(work, jax_trained_lsd))
             launches["parallel"] = phase_parallel(work, flac, gen_times)
         finally:
             os.chdir(cwd)

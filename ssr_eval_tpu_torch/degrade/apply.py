@@ -236,3 +236,15 @@ def build_family_degrader(key: tuple, max_len: int):
         return apply(pre(x, length), x, length, params)
 
     return degrade
+
+
+def build_degrader(spec: DegradationSpec, max_len: int):
+    """Single-spec degrader (the JAX package's back-compat builder):
+    run(x [B, Lmax], length [B]) -> y [B, Lmax].  The spec's parameters
+    are built for x's device on the first call and cached (`spec_params`)."""
+    fn = build_family_degrader(family_key(spec), max_len)
+
+    def run(x, length):
+        return fn(x, length, spec_params(spec, max_len, x.device))
+
+    return run

@@ -122,6 +122,17 @@ def _extend(x: torch.Tensor, length: torch.Tensor, pad: int) -> torch.Tensor:
     return ext.scatter_(1, pad + length + ar, right)
 
 
+def frame_slabs(ext: torch.Tensor, hop: int, n_fft: int, max_frames: int) -> torch.Tensor:
+    """Hop-strided frames [..., max_frames, n_fft] of `ext` [..., L]: frame
+    f holds ext[f*hop : f*hop + n_fft], zeros past the end of a short `ext`
+    (the JAX package's zero padding).  A strided view (`unfold`) of `ext`
+    when it is long enough; no gather."""
+    need = (max_frames - 1) * hop + n_fft
+    if ext.shape[-1] < need:
+        ext = F.pad(ext, (0, need - ext.shape[-1]))
+    return ext.unfold(-1, n_fft, hop)[..., :max_frames, :]
+
+
 def _framing_source(x: torch.Tensor, length: torch.Tensor, cfg: StftConfig, max_frames: int):
     """The buffer frames are cut from ([B, Lext], contiguous), long enough
     for `max_frames` frames."""
@@ -137,8 +148,7 @@ def stft_real_imag(x: torch.Tensor, length: torch.Tensor, cfg: StftConfig, max_f
 
     Frames at index >= n_frames_for_length(cfg, length) are garbage and must
     be masked by the caller."""
-    ext = _framing_source(x, length, cfg, max_frames)
-    fr = ext.unfold(-1, cfg.n_fft, cfg.hop)[:, :max_frames]
+    fr = frame_slabs(_framing_source(x, length, cfg, max_frames), cfg.hop, cfg.n_fft, max_frames)
     win = window_tensor(cfg.n_fft, cfg.win, x.device)
     z = torch.fft.rfft(fr * win, n=cfg.n_fft, dim=-1)
     return z.real, z.imag

@@ -69,6 +69,9 @@ class BitReader:
     def byte_position(self):
         return self.pos - self.nbits // 8
 
+    def eof(self):
+        return self.nbits == 0 and self.pos >= len(self.buf)
+
     def read_utf8_number(self):
         b0 = self.read(8)
         if b0 < 0x80:

@@ -133,3 +133,10 @@ def spectral_metrics(est, est_len, tgt, tgt_len, cfg: StftConfig, max_frames: in
     min_len = torch.minimum(est_len, tgt_len)
     tgt_sp = stft_magnitude(tgt, min_len, cfg, max_frames)
     return spectral_metrics_with_target(est, min_len, tgt_sp, cfg, max_frames)
+
+
+def batched_spectral_metrics(est, est_lens, tgt, tgt_lens, cfg: StftConfig, max_frames: int):
+    """The JAX package's vmap of its one-pair `spectral_metrics` over the
+    utterance axis.  Here `spectral_metrics` already takes [B, Lmax]
+    buffers, so this is the same function: -> dict of [B] tensors."""
+    return spectral_metrics(est, est_lens, tgt, tgt_lens, cfg, max_frames)

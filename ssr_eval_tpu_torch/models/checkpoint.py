@@ -6,7 +6,7 @@ the JAX package's `save_variables_npz`, so its checkpoints (e.g.
 examples/trained_small/generator_dnn.npz) load here and ours load there.
 Orbax checkpoint directories need JAX and are refused with a message.
 
-    save_variables(path, variables)
+    save_variables_npz(path, variables)   # or save_variables: the same file
     variables = restore_variables(path)
 """
 
@@ -50,11 +50,18 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_variables(path: str, variables) -> str:
-    """Write a variables tree as one `.npz` (suffix added if missing)."""
+def save_variables_npz(path: str, variables) -> str:
+    """Write a variables tree as one `.npz` (suffix added if missing) and
+    return its path: the JAX package's portable single-file format."""
     p = _npz_path(path)
     np.savez(p, **_flatten(variables))
     return p
+
+
+def save_variables(path: str, variables) -> str:
+    """`save_variables_npz`: the port has no Orbax, so the JAX package's
+    Orbax-first `save_variables` always takes its `.npz` branch here."""
+    return save_variables_npz(path, variables)
 
 
 def restore_variables(path: str):

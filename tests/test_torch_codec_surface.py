@@ -26,15 +26,15 @@ from ssr_eval_tpu.degrade import codec as jcodec
 from ssr_eval_tpu.dsp.correlate import align_by_correlation as j_align
 from ssr_eval_tpu.dsp.correlate import cross_correlate_full as j_xcorr
 from ssr_eval_tpu_torch.degrade import codec as tcodec
-from ssr_eval_tpu_torch.degrade import lowpass as tlow
 from ssr_eval_tpu_torch.dsp.correlate import align_by_correlation, cross_correlate_full
 from ssr_eval_tpu_torch.io import mp3_lame
 from ssr_eval_tpu_torch.io.audio import decode_audio, read_wav, write_wav
 from ssr_eval_tpu_torch.harness.fixtures import speechlike
 from tests.test_torch_harness import NOISE, PARITY
 
-# ssr_eval_tpu.degrade re-exports the function `lowpass` over its module.
+# Both packages' `degrade` re-export the function `lowpass` over its module.
 jlow = importlib.import_module("ssr_eval_tpu.degrade.lowpass")
+tlow = importlib.import_module("ssr_eval_tpu_torch.degrade.lowpass")
 
 METRICS = ("lsd", "log_sispec", "sispec", "ssim")
 needs_lame = pytest.mark.skipif(not mp3_lame.available(), reason="libmp3lame not present")

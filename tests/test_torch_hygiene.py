@@ -58,13 +58,13 @@ def test_no_source_runs_make_or_loads_the_jax_packages_library():
 @pytest.mark.parametrize(
     "entry",
     ["resolve_device", "engine", "helper", "test", "nvsr_testee", "leaderboard", "verify_real", "example_test",
-     "example_nvsr_main", "example_train_nvsr", "make_mesh", "chip_peaks"],
+     "example_nvsr_main", "example_train_nvsr", "example_train_small_nvsr", "make_mesh", "chip_peaks"],
 )
 def test_entry_points_need_a_card_unless_cpu_is_asked(entry, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
     from ssr_eval_tpu_torch import verify_real
-    from ssr_eval_tpu_torch.examples import nvsr_main, train_nvsr
+    from ssr_eval_tpu_torch.examples import nvsr_main, train_nvsr, train_small_nvsr
     from ssr_eval_tpu_torch.examples import test as example_test
     from ssr_eval_tpu_torch.harness.leaderboard import run_leaderboard
     from ssr_eval_tpu_torch.models.testees import NVSRTestee
@@ -78,6 +78,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(entry, tmp_path, monkeypat
         "example_test": lambda: example_test.test(),
         "example_nvsr_main": lambda: nvsr_main.main(),
         "example_train_nvsr": lambda: train_nvsr.main(steps=1),
+        "example_train_small_nvsr": lambda: train_small_nvsr.main(["1", "1", "--out", str(tmp_path / "small")]),
         "make_mesh": lambda: make_mesh(),
         "chip_peaks": lambda: chip_peaks(),
         "nvsr_testee": lambda: NVSRTestee(model_name="dnn"),

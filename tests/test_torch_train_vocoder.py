@@ -51,6 +51,7 @@ from ssr_eval_tpu_torch.models.nvsr import NVSR_STFT
 from ssr_eval_tpu_torch.models.train_vocoder import SMALL_TFGAN, VocoderTrainer, export_torch_state_dict
 from ssr_eval_tpu_torch.models.vocoder import TFGANConfig
 from ssr_eval_tpu_torch.models.vocoder_check import probe_signal
+from tests.test_torch_nvsr import one_torch_thread  # noqa: F401  (a fixture)
 from tests.test_torch_stft_kernel import _c64, _stockham_np
 
 STFT_GRAD_TOL = 1e-5
@@ -117,7 +118,7 @@ STFT_CONFIGS = {
     [pytest.param("nvsr", "noise", id="noise"), pytest.param("nvsr", "speech", id="speech"),
      pytest.param("48k", "noise", id="48k-noise"), pytest.param("16k", "noise", id="16k-noise")],
 )
-def test_stft_backward_matches_jax_grad_and_float64(config, signal):
+def test_stft_backward_matches_jax_grad_and_float64(config, signal, one_torch_thread):
     """d sum(g * stft_magnitude(x, eps=1e-8)) / dx through _extend (reflect
     edges at each row's own length) vs jax.grad of the JAX package's
     stft_magnitude, and vs the same graph in float64."""
