@@ -5,8 +5,9 @@
 
 Phases (any failure raises and the script exits non-zero):
   build      nvcc builds every kernel under ssr_eval_tpu_torch/csrc/ into
-             ssr_eval_tpu_torch/_build/ (one nvcc per source, in parallel),
-             and g++ the native IO library (native/ssrio.cpp) beside them.
+             the checkout's ssr_eval_tpu_torch/_build/ (one nvcc per source,
+             in parallel), and g++ the native IO library (csrc/ssrio.cpp)
+             beside them.
   kernel     the |STFT| kernel on the card at the main path's shapes
              (2048/441, 2229/480 and 743/160, 16 buffers -> [16, 744,
              n_bins]; 2048/512 -> [16, 641, 1025], NVSR's post-processing
@@ -30,6 +31,17 @@ Phases (any failure raises and the script exits non-zero):
              utt/s and the decode stage beside the WAV sweep's; the native
              decode_batch against the pure-Python flac_py on those files and
              on the synthetic VCTK set.
+  install    the port as a user installs it: pip builds its wheel from a
+             copy of ssr_eval_tpu_torch/ (tests/port_install.py) and
+             installs it into a read-only directory; a child process (this
+             script with -P, the install alone on PYTHONPATH, a fresh HOME,
+             a cwd outside the checkout) builds both libraries from the
+             installed sources into the fresh user cache (nvcc and g++
+             seconds) and runs the flac phase's sweep on the card.  Both
+             libraries must load from that cache, the decoders be
+             "native_batch", the kernel launch 8 times per batch, no JAX be
+             imported, nothing be written into the install, and every pair
+             lie within INSTALL_TOL of the flac phase's.
   smoke      ssr_eval_tpu_torch.test() (the README smoke run: 48 kHz
              evaluation, so the 2229-point kernel) on the synthetic VCTK set,
              held to the golden values of the JAX package.
@@ -286,6 +298,10 @@ REMAT_TOL, REMAT_STEPS = 1e-6, 5
 LEADERBOARD_KHZ = [4, 8]
 COST_TOL = 0.01
 
+# install: the installed port's FLAC sweep against the flac phase's, per pair
+# (PERF.md section 2's FLAC-vs-WAV limit; the same source and flags give 0)
+INSTALL_TOL = 1e-6
+
 
 def log(*a):
     print(*a, flush=True)
@@ -344,8 +360,9 @@ def noisy_testee(device):
 # ----------------------------------------------------------------------
 
 
-def phase_build():
-    """nvcc for every CUDA source and g++ for native/ssrio.cpp, all at once."""
+def build_both():
+    """nvcc for every CUDA source and g++ for csrc/ssrio.cpp, all at once ->
+    ({stem: kernel library}, nvcc seconds, IO library, g++ seconds)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ssr_eval_tpu_torch.dsp import _build
@@ -359,11 +376,20 @@ def phase_build():
         native = ex.submit(timed, build_native.build)
         paths, cuda_s = timed(_build.build_all)
         lib, native_s = native.result()
+    return paths, cuda_s, lib, native_s
+
+
+def _ptxas_lines(lib):
+    log_text = lib.with_suffix(".log").read_text()
+    return " | ".join(ln.strip() for ln in log_text.splitlines() if "Used" in ln or "spill" in ln)
+
+
+def phase_build():
+    paths, cuda_s, lib, native_s = build_both()
     log(f"[build] {len(paths)} kernel source(s) built in {cuda_s:.2f} s; native IO library {lib.name} "
         f"built by g++ in {native_s:.2f} s")
     for p in paths.values():
-        info = [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines() if "Used" in ln or "spill" in ln]
-        log(f"[build] {p.name}: {' | '.join(info)}")
+        log(f"[build] {p.name}: {_ptxas_lines(p)}")
 
 
 def stft_bound(B, ext_len, mf, n_fft):
@@ -598,7 +624,7 @@ def phase_flac(work, sweep):
     from ssr_eval_tpu_torch.io.audio import flac_codec, read_wav_i16
 
     t = time.perf_counter()
-    codec = flac_codec()  # builds native/ssrio.cpp unless the build phase did
+    codec = flac_codec()  # builds csrc/ssrio.cpp unless the build phase did
     log(f"[flac] codec {codec} ({time.perf_counter() - t:.2f} s to load)")
     if codec != "native":
         raise AssertionError("the native FLAC library did not build")
@@ -646,7 +672,110 @@ def phase_flac(work, sweep):
         native_s, py_s = _decoder_seconds(paths)
         log(f"[flac] decode {name}: native decode_batch {native_s:.4f} s, pure-Python flac_py {py_s:.4f} s "
             f"({py_s / native_s:.1f}x) on this host's CPU")
-    return {"launches": launches, "root": root, "kw": kw, "card": card}
+    return {"launches": launches, "root": root, "kw": kw, "card": card, "s_per_batch": best / n_batches}
+
+
+def install_child(kw_json, out):
+    """The FLAC headline sweep from an installed port: phase_install runs
+    this script with `-P`, the install alone on PYTHONPATH, a fresh HOME and
+    a cwd outside the checkout.  Builds both libraries (timed), runs the
+    sweep (warm-up, one counted run, 3 timed runs) and writes what it saw to
+    `out` as JSON."""
+    import importlib.util
+
+    import torch
+
+    import ssr_eval_tpu_torch
+    from ssr_eval_tpu_torch.dsp import _build
+    from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
+    from ssr_eval_tpu_torch.io.audio import flac_codec
+
+    paths, cuda_s, io_lib, native_s = build_both()
+    kernel_lib = paths["stft_magnitude"]
+    codec = flac_codec()
+    testee, _ = noisy_testee(torch.device("cuda"))
+    helper = ssr_eval_tpu_torch.SSR_Eval_Helper(testee, **json.loads(kw_json))
+    helper.evaluate(verbose=False)  # warm-up
+    stft_magnitude_kernel.launches = 0
+    card = helper.evaluate(verbose=False)
+    launches = stft_magnitude_kernel.launches
+    times, decode_s = timed_runs(helper)
+    with open(out, "w") as f:
+        json.dump({
+            "file": ssr_eval_tpu_torch.__file__, "nvcc_s": cuda_s, "gxx_s": native_s,
+            "kernel_lib": str(kernel_lib), "kernel_loaded": _build._libs["stft_magnitude"]._name,
+            "ptxas": _ptxas_lines(kernel_lib), "io_lib": str(io_lib), "codec": codec,
+            "decoders": sorted(helper.engine.stats.decoders), "launches": launches, "times": times,
+            "decode_s": decode_s, "card": card,
+            "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ssr_eval_tpu")),
+            "sees_the_checkout": importlib.util.find_spec("ssr_eval_tpu") is not None
+            or any(p and os.path.realpath(p) == ROOT for p in sys.path),
+        }, f)
+    return 0
+
+
+def phase_install(work, flac):
+    """The port as a user installs it: its wheel built by pip from a copy of
+    ssr_eval_tpu_torch/, installed into work/install/site and made read-only;
+    then install_child runs the FLAC headline sweep from that install."""
+    import ssr_eval_tpu_torch
+    from tests.port_install import build_wheel, copy_package, install_read_only, make_writable
+
+    base = os.path.join(work, "install")
+    t = time.perf_counter()
+    wheel = build_wheel(copy_package(base), os.path.join(base, "dist"))
+    site = install_read_only(wheel, os.path.join(base, "site"))
+    pip_s = time.perf_counter() - t
+    home, cwd, out = (os.path.join(base, n) for n in ("home", "cwd", "result.json"))
+    os.makedirs(home)
+    os.makedirs(cwd)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XDG_CACHE_HOME")}
+    env.update(PYTHONPATH=str(site), HOME=home)
+    before = sorted(str(p) for p in site.rglob("*"))
+    try:
+        r = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), "--install-child",
+             json.dumps(dict(flac["kw"], test_name="chip_install")), out],
+            cwd=cwd, env=env, capture_output=True, text=True, timeout=900,
+        )
+        after = sorted(str(p) for p in site.rglob("*"))
+    finally:
+        make_writable(site)
+    if r.returncode != 0:
+        raise AssertionError(f"the installed port's sweep failed (rc {r.returncode}):\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    cache = os.path.join(home, ".cache", "ssr_eval_tpu_torch", ssr_eval_tpu_torch.__version__)
+    n_batches = -(-N_UTTS // BATCH)
+    best = min(res["times"])
+    delta, finite = _stem_delta(res["card"], flac["card"])
+    log(f"[install] {wheel.name} built and installed read-only by pip in {pip_s:.2f} s; imported from "
+        f"{res['file']}")
+    log(f"[install] from the installed sources into a fresh cache: nvcc {res['nvcc_s']:.2f} s, "
+        f"g++ {res['gxx_s']:.2f} s; kernel library {res['kernel_loaded']}; IO library {res['io_lib']}")
+    log(f"[install] {os.path.basename(res['kernel_lib'])}: {res['ptxas']}")
+    log(f"[install] FLAC sweep from the install: decoders {res['decoders']}; timed runs "
+        f"{[round(x, 4) for x in res['times']]} s; best {best / n_batches:.4f} s/batch, {N_UTTS / best:.2f} utt/s, "
+        f"decode stage {res['decode_s']:.4f} s per timed run (flac phase: {flac['s_per_batch']:.4f} s/batch); "
+        f"kernel launches {res['launches']}")
+    log(f"[install] max |installed sweep - flac phase| per pair: {json.dumps(delta)}")
+    for key in ("kernel_lib", "kernel_loaded", "io_lib"):
+        if os.path.dirname(res[key]) != cache:
+            raise AssertionError(f"{key} {res[key]} is not in the fresh cache {cache}")
+    if not res["file"].startswith(str(site) + os.sep) or res["sees_the_checkout"]:
+        raise AssertionError(f"the child imported {res['file']} or could see the checkout")
+    if res["jax_modules"]:
+        raise AssertionError(f"the installed port imported {res['jax_modules']}")
+    if res["codec"] != "native" or res["decoders"] != ["native_batch"]:
+        raise AssertionError(f"the installed port decoded FLAC through {res['codec']} / {res['decoders']}")
+    if res["launches"] != n_batches * (1 + len(CUTOFFS)):
+        raise AssertionError(f"|STFT| kernel launched {res['launches']} times in the installed sweep")
+    if before != after:
+        raise AssertionError(f"the run wrote into the install: {sorted(set(after) - set(before))[:5]}")
+    if not finite or any(delta[k] > INSTALL_TOL for k in METRICS):
+        raise AssertionError(f"installed sweep off the flac phase: {delta} (limit {INSTALL_TOL})")
+    return res["launches"]
 
 
 def profile_sweep(helper, tag="profile"):
@@ -1915,6 +2044,7 @@ def main():
             sweep = phase_sweep(work)
             flac = phase_flac(work, sweep)
             launches = {"sweep": sweep["launches"], "flac": flac["launches"]}
+            launches["install"] = phase_install(work, flac)
             phase_smoke(work)
             phase_invariance(work)
             launches["matrix"] = phase_matrix(work)
@@ -1975,4 +2105,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--install-child"]:
+        sys.exit(install_child(*sys.argv[2:]))
     sys.exit(main())

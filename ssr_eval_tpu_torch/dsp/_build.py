@@ -4,12 +4,14 @@ Each ``csrc/*.cu`` is compiled by its own ``nvcc`` (all started together)
 into a shared library with a plain C interface, for ``sm_90a`` (Hopper):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build dir>/<name>-<hash>.so csrc/<name>.cu
 
-The output lands in ``ssr_eval_tpu_torch/_build/`` keyed by a hash of the
-source and the flags, so an unchanged source is built once per checkout;
-``-Xptxas -v`` (registers, shared memory, spills) goes to a ``.log``
-beside each library.
+The output lands in ``_paths.build_dir()`` (the package's ``_build/`` in a
+checkout, the user cache in a read-only install) keyed by a hash of the
+source and the flags, so an unchanged source is built once per build
+directory; ``-Xptxas -v`` (registers, shared memory, spills) goes to a
+``.log`` beside each library.  The sources are ``csrc/*.cu`` only:
+``csrc/ssrio.cpp`` is the host IO library, built by ``io/build_native.py``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-PKG = Path(__file__).resolve().parents[1]
+from ssr_eval_tpu_torch._paths import PKG, build_dir
+
 CSRC = PKG / "csrc"
-BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,19 +43,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
-def _target(src: Path) -> Path:
+def _target(src: Path, out_dir: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{h}.so"
+    return out_dir / f"{src.stem}-{h}.so"
 
 
 def build_all() -> dict[str, Path]:
     """Compile every csrc/*.cu not built yet, one nvcc each, in parallel.
     -> {source stem: library path}.  Raises with nvcc's output on failure."""
-    BUILD_DIR.mkdir(exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     srcs = sorted(CSRC.glob("*.cu"))
     jobs = []
     for src in srcs:
-        out = _target(src)
+        out = _target(src, out_dir)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
@@ -70,7 +73,7 @@ def build_all() -> dict[str, Path]:
         os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return {src.stem: _target(src) for src in srcs}
+    return {src.stem: _target(src, out_dir) for src in srcs}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,7 +6,9 @@ same recipe).
         [--out DIR] [--device cuda|cpu]
 
 Runs on the CUDA card unless `--device cpu` is given.  Writes into --out
-(default `ssr_eval_tpu_torch/_build/trained_small/`, which git ignores):
+(default `trained_small/` in the port's build directory, `_paths.build_dir()`:
+`ssr_eval_tpu_torch/_build/` in a checkout, which git ignores, the user cache
+in a read-only install):
   vocoder_small_trained.pt   the trained vocoder as a voicefixer-layout
                              torch state dict
   generator_dnn.npz          the trained dnn generator as the JAX package's
@@ -32,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from ssr_eval_tpu_torch._paths import PKG, build_dir
 from ssr_eval_tpu_torch.device import resolve_device
 from ssr_eval_tpu_torch.harness.fixtures import speechlike
 from ssr_eval_tpu_torch.models.checkpoint import save_variables_npz
@@ -40,9 +43,8 @@ from ssr_eval_tpu_torch.models.train import NVSRTrainer
 from ssr_eval_tpu_torch.models.train_vocoder import SMALL_TFGAN, VocoderTrainer, export_torch_state_dict
 from ssr_eval_tpu_torch.models.vocoder_check import probe_signal, synthesis_report
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT_OUT = os.path.join(_PKG, "_build", "trained_small")
-CHECKED_IN = os.path.join(os.path.dirname(_PKG), "examples", "trained_small")
+DEFAULT_OUT = str(build_dir() / "trained_small")
+CHECKED_IN = str(PKG.parent / "examples" / "trained_small")
 
 SR = 44100
 VOCODER_CHUNK = 500

@@ -1,5 +1,5 @@
-"""ctypes binding to the native IO library (``native/ssrio.cpp``), built for
-the port by ``io/build_native.py`` on first use.
+"""ctypes binding to the native IO library (the port's ``csrc/ssrio.cpp``),
+built by ``io/build_native.py`` into ``_paths.build_dir()`` on first use.
 
 The same functions as the JAX package's binding: `decode`, `decode_i16`,
 `decode_batch`, `encode`, and the capability flags `HAS_BATCH` and

@@ -1,8 +1,8 @@
 """The port's native FLAC IO (ssr_eval_tpu_torch.io.build_native, io.flac_native,
 io.audio, the engine's native batch decode) on the CPU.
 
-The library is the port's own g++ build of native/ssrio.cpp under
-ssr_eval_tpu_torch/_build/.  Its samples are held bit-identical to the
+The library is the port's own g++ build of its csrc/ssrio.cpp (a copy of
+native/ssrio.cpp) under ssr_eval_tpu_torch/_build/ in this checkout.  Its samples are held bit-identical to the
 port's pure-Python codec (io/flac_py.py) and to the JAX package's readers
 (ssr_eval_tpu.io.audio.read_flac, ssr_eval_tpu.io.flac_py) on the same files,
 each way round, for mono and stereo, 16-bit and 24-bit, and full-scale noise

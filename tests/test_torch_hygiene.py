@@ -42,9 +42,10 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_no_source_runs_make_or_loads_the_jax_packages_library():
-    """The port builds native/ssrio.cpp itself (io/build_native.py, into its
-    own _build/): `make -C native` writes into the JAX package, and the
-    library committed there is the JAX package's."""
+    """The port builds its own copy of the IO source, csrc/ssrio.cpp, itself
+    (io/build_native.py, into _paths.build_dir()): `make -C native` writes
+    into the JAX package, and the library committed there is the JAX
+    package's."""
     sources = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
