@@ -217,29 +217,45 @@ def trim_center(est, ref_len):
 _WEIGHTED = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.ConvTranspose2d, nn.Linear)
 
 
+# flax's lecun_normal: a normal cut at +-2 of its scale, the scale raised
+# by 1/std(N(0,1) truncated at +-2) so the draw keeps variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random weights, the JAX package's initializer family: every
-    conv, transposed conv, Linear and GRU weight ~ N(0, 1/fan_in) with
-    flax's fan_in (kernel size x input channels), biases 0, BatchNorm
-    identity.  Drawn on the CPU from one torch.Generator in module order,
-    so a seed gives the same weights on any device."""
+    """Seeded random weights drawn as the JAX package's flax defaults draw
+    them: every conv, transposed conv, Linear and GRU input weight from
+    `lecun_normal` (a normal truncated at +-2s, s = sqrt(1/fan_in)/0.8796,
+    so variance 1/fan_in and |w| <= 2.2737/sqrt(fan_in)) with flax's fan_in
+    (kernel size x input channels); each of a GRU's recurrent gate blocks
+    (r, z, n in `weight_hh_l*`) an orthogonal H x H matrix, as flax's
+    `orthogonal()` draws `hr`, `hz` and `hn`; biases 0, BatchNorm identity.
+    Drawn on the CPU from one torch.Generator in module order, so a seed
+    gives the same weights on any device."""
     g = torch.Generator().manual_seed(int(seed))
 
-    def normal(w, fan_in):
-        w.copy_(torch.randn(w.shape, generator=g) / fan_in ** 0.5)
+    def lecun_normal(w, fan_in):
+        s = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+        w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, s, -2 * s, 2 * s, generator=g))
+
+    def orthogonal_gates(w):
+        h = w.shape[1]
+        w.copy_(torch.cat([nn.init.orthogonal_(torch.empty(h, h), generator=g) for _ in range(w.shape[0] // h)]))
 
     for m in model.modules():
         if isinstance(m, _WEIGHTED):
             w = m.weight
             out_axis = 1 if isinstance(m, (nn.ConvTranspose1d, nn.ConvTranspose2d)) else 0
-            normal(w, w.numel() // w.shape[out_axis])
+            lecun_normal(w, w.numel() // w.shape[out_axis])
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.GRU):
             for name, p in m.named_parameters():
-                if name.startswith("weight"):
-                    normal(p, p.shape[1])
+                if name.startswith("weight_ih"):
+                    lecun_normal(p, p.shape[1])
+                elif name.startswith("weight_hh"):
+                    orthogonal_gates(p)
                 else:
                     p.zero_()
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):

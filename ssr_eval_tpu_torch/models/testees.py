@@ -88,8 +88,9 @@ class NVSRTestee(BatchedTestee):
     or 'dnn'.  Weights, in order of precedence: `ckpt` (a reference torch
     NVSR checkpoint, `load_checkpoint`), `params` (the JAX package's
     variables tree as NumPy arrays, carried by
-    `convert.nvsr_state_from_flax`), else seeded random weights
-    (`nvsr.init_weights(seed)`).
+    `convert.nvsr_state_from_flax`), else seeded random weights drawn as
+    flax's defaults draw them (`nvsr.init_weights(seed)`: truncated LeCun
+    normal kernels, orthogonal GRU recurrent gates, zero biases).
     dtype: model compute dtype; torch.bfloat16 runs the generator and the
     vocoder under a bfloat16 autocast (the evaluation DSP and the mel stay
     float32).  None is float32 with no TF32.

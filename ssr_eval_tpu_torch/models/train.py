@@ -94,7 +94,8 @@ class NVSRTrainer:
         """{"model": the generator in train mode on the device, "opt": its
         AdamW}.  Weights: `params`, the JAX package's variables tree of the
         generator ({"params": {"generator": ...}, "batch_stats": ...}, as
-        NumPy arrays), else `nvsr.init_weights(seed)`."""
+        NumPy arrays), else `nvsr.init_weights(seed)`, flax's default draw
+        (truncated LeCun normal kernels, orthogonal GRU recurrent gates)."""
         gen = self.model.generator
         if params is not None:
             from ssr_eval_tpu_torch.models.convert import nvsr_state_from_flax

@@ -65,7 +65,8 @@ class VocoderTrainer:
     def init_state(self, seed: int = 0, params=None):
         """{"model": the vocoder on the device, "opt": its AdamW}.  Weights:
         `params`, the JAX package's Vocoder params ({"model": {"pre": ...}}
-        as NumPy arrays), else `nvsr.init_weights(seed)`."""
+        as NumPy arrays), else `nvsr.init_weights(seed)`, flax's default
+        draw (truncated LeCun normal kernels, zero biases)."""
         if params is not None:
             from ssr_eval_tpu_torch.models.convert import nvsr_state_from_flax
 

@@ -1,0 +1,86 @@
+"""chip_smoke.py's two comparisons of seeded random-weight models, on the
+CPU (the card side runs only in chip_smoke.py):
+
+- `sispec_cos` inverts a SiSpec in dB to the |cos| between the estimate
+  and the target that the metric encodes (the port's `_sispec` on the
+  same vectors), and a near-orthogonal pair that moves the dB by tens
+  moves the cosine by no more than the estimate's relative change;
+- `pinned_branches` replays recorded relu / leaky-ReLU branches: an
+  element that crossed 0 keeps its recorded slope in the forward and the
+  backward, and a forward that calls its activations differently raises;
+- `cotangent_grads` gives the reference its own loss gradient, and the
+  gradient check at CPU against CPU reads 0 for both models.
+"""
+
+import math
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as cs  # noqa: E402
+from ssr_eval_tpu_torch.metrics.kernels import _sispec  # noqa: E402
+
+
+def _cos(a, b):
+    return abs(float((a * b).sum() / (a.norm() * b.norm())))
+
+
+@pytest.mark.parametrize("tilt", [0.0, 1e-3, 0.3])
+def test_sispec_cos_is_the_metrics_cosine(tilt):
+    rng = np.random.default_rng(0)
+    t = torch.from_numpy(rng.standard_normal((1, 40, 30)))
+    n = torch.from_numpy(rng.standard_normal((1, 40, 30)))
+    n = n - (n * t).sum() / (t * t).sum() * t  # orthogonal to t
+    e = tilt * t + n
+    db = float(_sispec(e, t))
+    # abs: the metric's EPS inside the log floors the ratio at 1e-12 (cos 1e-6)
+    assert cs.sispec_cos(db) == pytest.approx(_cos(e, t), rel=1e-6, abs=2e-6)
+    # a 1e-4 relative change of a near-orthogonal estimate
+    e2 = e + 1e-4 * e.norm() * t / t.norm()
+    d_cos = abs(cs.sispec_cos(float(_sispec(e2, t))) - cs.sispec_cos(db))
+    assert d_cos <= 1.01e-4
+    if tilt == 0.0:
+        assert abs(float(_sispec(e2, t)) - db) > 10.0  # the dB moves by tens
+
+
+def test_pinned_branches_replay_the_recorded_branches():
+    x = torch.tensor([-1.0, -1e-7, 2.0])
+    masks = []
+    with cs.pinned_branches(masks, record=True):
+        assert torch.equal(F.leaky_relu(x, 0.1), torch.tensor([-0.1, -1e-8, 2.0]))
+        assert torch.equal(F.relu(x), torch.tensor([0.0, 0.0, 2.0]))
+    y = torch.tensor([-1.0, 1e-7, 2.0], requires_grad=True)  # element 1 crossed 0
+    with cs.pinned_branches(masks, record=False):
+        out = F.leaky_relu(y, 0.1)
+        F.relu(y).sum().backward(retain_graph=True)
+    assert y.grad.tolist() == [0.0, 0.0, 1.0]
+    (g,) = torch.autograd.grad(out.sum(), y)
+    assert g.tolist() == pytest.approx([0.1, 0.1, 1.0])
+    assert F.relu is torch.nn.functional.relu and F.relu(torch.tensor([-1.0])).item() == 0.0  # restored
+    with pytest.raises(AssertionError, match="differently"):
+        with cs.pinned_branches(masks, record=False):
+            F.relu(torch.zeros(4))
+    with pytest.raises(AssertionError, match="fewer"):
+        with cs.pinned_branches(masks, record=False):
+            F.leaky_relu(y, 0.1)
+
+
+@pytest.mark.parametrize("kind", ["generator", "vocoder"])
+def test_cotangent_grads_give_the_loss_gradient(kind):
+    ref = cs.gradient_case(kind, "cpu", 3)
+    plain = cs.gradient_case(kind, "cpu", 3)
+    plain[2]().backward()
+    want = cs._grads_of(plain[0])
+    got, other = cs.cotangent_grads(ref, cs.gradient_case(kind, "cpu", 3))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(other[k], want[k]), k
+    assert cs._leaf_delta(got, other, cs.TRAIN_GRAD_FLOOR) == (0.0, None)
+    with torch.no_grad():
+        assert math.isfinite(float(ref[2]()))

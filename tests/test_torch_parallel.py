@@ -270,9 +270,15 @@ def _dp_violations(got, want, lr):
     Parameters whose one-process gradient is rounding noise (a true
     gradient of 0) move by a random fraction of lr on both sides: they are
     held within 2 lr."""
+    return {k: gap for k, (gap, tol) in _dp_gaps(got, want, lr).items() if not gap <= tol}
+
+
+def _dp_gaps(got, want, lr):
+    """{leaf: (max |got - want| over its scale, its tolerance)} with
+    `_dp_violations`' scales and tolerances."""
     gmax = max(np.abs(w).max() for k, w in want.items() if k.startswith("grad/"))
     pmax = max(np.abs(w).max() for k, w in want.items() if k.startswith("param/"))
-    bad = {}
+    gaps = {}
     for k, w in want.items():
         d = float(np.abs(got[k] - w).max())
         scale, tol = float(np.abs(w).max()), DP_TOL
@@ -282,9 +288,8 @@ def _dp_violations(got, want, lr):
             scale = pmax
             if np.abs(want["grad/" + k[6:]]).max() < 1e-6 * gmax:
                 scale, tol = 2 * lr, 1.0
-        if not d <= tol * scale:
-            bad[k] = d / scale
-    return bad
+        gaps[k] = (d / scale, tol)
+    return gaps
 
 
 def test_two_process_dp_step_equals_one_process_step(tmp_path):

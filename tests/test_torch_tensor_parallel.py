@@ -11,11 +11,14 @@ CPU with gloo.
   generator whose 64-channel layers are sharded takes one step at tp = 2
   on 2 processes, and at dp 2 x tp 2 on 4 processes.  The loss, every
   gradient leaf and every parameter after the update (gathered to full
-  shapes), and the BatchNorm running statistics are within DP_TOL of the
-  one-process step on the same global batch, with
-  tests/test_torch_parallel.py's scales (`_dp_violations`); a variant whose
-  sharded layers take their input without the backward all-reduce fails
-  that check; rank 0's checkpoint has the plain trainer's names and shapes.
+  shapes), and the BatchNorm running statistics are within DP_TOL, with
+  tests/test_torch_parallel.py's scales (`_dp_violations`), of the step
+  with nothing sharded on the same data split: the one-process step at
+  tp = 2, the 2-process data-parallel step at dp 2 x tp 2.  At dp 2 x tp 2
+  each leaf is also no further from the one-process step than the
+  data-parallel step is, plus DP_TOL.  A variant whose sharded layers take
+  their input without the backward all-reduce fails that check; rank 0's
+  checkpoint has the plain trainer's names and shapes.
 Every subprocess gets communicate(timeout=240), init_process_group a 60 s
 timeout and one thread.
 """
@@ -33,14 +36,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.test_torch_parallel import DP_TOL, _dp_violations, global_batch
+from tests.test_torch_parallel import DP_TOL, _dp_gaps, _dp_violations, global_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# A 64-channel level, so the rule shards something at tp = 2.  The widths
-# also decide how far float32 rounding of a batch split over data ranks
-# carries through the BatchNorms: at (16, 64) the split alone (dp 2, tp 1,
-# no layer sharded) already moves some gradients past DP_TOL, at (8, 64)
-# it stays inside, so a failure here points at the sharding.
+# A 64-channel level, so the rule shards something at tp = 2.  Splitting
+# the batch over data ranks rounds the BatchNorm moments and the gradient
+# sums differently from one process, and on some seeded random weights
+# that alone moves a gradient past DP_TOL (dp 2, tp 1, nothing sharded).
+# So a run with data ranks is held to the data-parallel step on the same
+# split, and a failure points at the sharding.
 TP_UNET = dict(widths=(8, 64), blocks_per_group=1)
 
 
@@ -197,13 +201,25 @@ def test_tp_step_equals_one_process_step(world, tp, tmp_path):
     ckpt = tmp_path / "tp_ckpt"
     _run("tp", [(tp, o, ckpt) for o in outs])
     tr, state = tp_unet_trainer()
-    want = tp_step_record(tr, state)
+    want = one = tp_step_record(tr, state)
     zs = [np.load(o) for o in outs]
     assert int(zs[0]["n_sharded"]) > 0
     for z in zs[1:]:  # the ranks agree bit for bit
         for k in want:
             assert np.array_equal(zs[0][f"synced/{k}"], z[f"synced/{k}"]), k
-    bad = _dp_violations({k: zs[0][f"synced/{k}"] for k in want}, want, tr.learning_rate)
+    got = {k: zs[0][f"synced/{k}"] for k in want}
+    if world > tp:  # data ranks: the same split with nothing sharded
+        dp_outs = [tmp_path / f"dp_rank{r}.npz" for r in range(world // tp)]
+        _run("tp", [(1, o, tmp_path / "dp_ckpt") for o in dp_outs])
+        dp = np.load(dp_outs[0])
+        want = {k: dp[f"synced/{k}"] for k in one}
+        # against the one-process step: no further than the data split
+        # alone, plus DP_TOL, leaf by leaf
+        dp_gap = _dp_gaps(want, one, tr.learning_rate)
+        worse = {k: (gap, dp_gap[k][0]) for k, (gap, tol) in _dp_gaps(got, one, tr.learning_rate).items()
+                 if not gap <= dp_gap[k][0] + tol}
+        assert not worse, worse
+    bad = _dp_violations(got, want, tr.learning_rate)
     assert not bad, bad
     # without the backward all-reduce every layer before a sharded one
     # gets a partial gradient
