@@ -4,7 +4,8 @@ CPU (the card side runs only in chip_smoke.py):
 - `sispec_cos` inverts a SiSpec in dB to the |cos| between the estimate
   and the target that the metric encodes (the port's `_sispec` on the
   same vectors), and a near-orthogonal pair that moves the dB by tens
-  moves the cosine by no more than the estimate's relative change;
+  moves the cosine by no more than the estimate's relative change, and
+  `cos_delta` takes the largest change of that cosine over two runs' pairs;
 - `pinned_branches` replays recorded relu / leaky-ReLU branches: an
   element that crossed 0 keeps its recorded slope in the forward and the
   backward, and a forward that calls its activations differently raises;
@@ -46,6 +47,21 @@ def test_sispec_cos_is_the_metrics_cosine(tilt):
     assert d_cos <= 1.01e-4
     if tilt == 0.0:
         assert abs(float(_sispec(e2, t)) - db) > 10.0  # the dB moves by tens
+
+
+def test_cos_delta_is_the_largest_pair_cosine_change():
+    """`cos_delta` over two helper results: the largest per-pair change of
+    log-SiSpec's |cos t|, 0 for a run against itself; at -60 dB (cos t =
+    1e-3) a 1 dB move is a change of 1.2e-4 in the cosine."""
+    def res(dbs):
+        return {"p000": {f"f{i}.wav": {"k": {"log_sispec": db}} for i, db in enumerate(dbs)},
+                "averaged": {}, "each_speaker": {}}
+
+    a, b = res([-60.0, -10.0]), res([-59.0, -10.0 + 1e-3])
+    assert cs.cos_delta(a, a) == 0.0
+    near_orthogonal = abs(cs.sispec_cos(-60.0) - cs.sispec_cos(-59.0))
+    assert abs(cs.sispec_cos(-10.0) - cs.sispec_cos(-10.0 + 1e-3)) < near_orthogonal
+    assert cs.cos_delta(a, b) == near_orthogonal == pytest.approx(1.22e-4, rel=1e-2)
 
 
 def test_pinned_branches_replay_the_recorded_branches():

@@ -17,6 +17,8 @@ from ssr_eval_tpu_torch.harness.testee import BatchedTestee
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ssr_eval_tpu_torch")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ssr_eval_tpu)(\.|\s|$)", re.M)
+# The repository's test helpers and its JAX benchmark: a wheel holds none.
+OUTSIDE_THE_WHEEL = re.compile(r"^\s*(import|from)\s+(tests|oracles|bench)(\.|\s|$)", re.M)
 
 
 def test_import_leaves_jax_out():
@@ -38,6 +40,18 @@ def test_no_source_imports_jax_or_the_jax_package():
     for path in sources:
         with open(path) as f:
             hit = FORBIDDEN.search(f.read())
+        assert hit is None, (path, hit and hit.group(0))
+
+
+def test_package_imports_nothing_a_wheel_lacks():
+    """No package source imports the repository's tests, its test oracle or
+    the root bench.py; the benchmark keeps its own oracle
+    (metrics/host_reference.py)."""
+    sources = [os.path.join(d, f) for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")]
+    assert os.path.join(PKG, "bench.py") in sources
+    for path in sources:
+        with open(path) as f:
+            hit = OUTSIDE_THE_WHEEL.search(f.read())
         assert hit is None, (path, hit and hit.group(0))
 
 

@@ -51,6 +51,7 @@ res = ssr_eval_tpu_torch.test(test_data_root=root, auto_download=False, device="
 with open(sys.argv[1], "w") as f:
     json.dump({
         "file": ssr_eval_tpu_torch.__file__,
+        "bench": importlib.util.find_spec("ssr_eval_tpu_torch.bench").origin,
         "codec": codec,
         "library": flac_native._lib()._name if codec == "native" else None,
         "decoders": sorted(helpers[0].engine.stats.decoders),
@@ -92,10 +93,17 @@ def wheel(tmp_path_factory):
     return build_wheel(src, work / "dist")
 
 
+# The port's benchmark from the install: quick sizes on the CPU, no NVSR,
+# one OpenMP thread (it runs beside the two smoke runs and the suite's
+# other workers; see tests/test_torch_bench.py::one_torch_thread).
+BENCH_ENV = {"SSR_BENCH_QUICK": "1", "SSR_BENCH_CPU": "1", "SSR_BENCH_NVSR": "0", "OMP_NUM_THREADS": "1"}
+
+
 @pytest.fixture(scope="module")
 def installed(wheel, tmp_path_factory):
     """The wheel installed read-only, and the smoke run from it and from the
-    checkout, each in a subprocess with its own cwd and HOME."""
+    checkout, each in a subprocess with its own cwd and HOME; beside them
+    `python -m ssr_eval_tpu_torch.bench` from the install."""
     work = tmp_path_factory.mktemp("installed")
     target = install_read_only(wheel, work / "site")
     before = _files(target)
@@ -111,12 +119,23 @@ def installed(wheel, tmp_path_factory):
             proc = subprocess.Popen([sys.executable, "-c", CHILD, str(out)], cwd=cwd, env=env,
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             runs[name] = (proc, out, home)
+        bench_cwd, bench_home = work / "cwd_bench", work / "home_bench"
+        bench_cwd.mkdir()
+        bench_home.mkdir()
+        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XDG_CACHE_HOME")}
+        env.update(PYTHONPATH=str(target), HOME=str(bench_home), **BENCH_ENV)
+        bench_detail = work / "bench_detail.json"
+        bench = subprocess.Popen([sys.executable, "-m", "ssr_eval_tpu_torch.bench", "--detail", str(bench_detail)],
+                                 cwd=bench_cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         got = {}
         for name, (proc, out, home) in runs.items():
             log, _ = proc.communicate(timeout=300)
             assert proc.returncode == 0, f"{name} run failed:\n{log[-4000:]}"
             with open(out) as f:
                 got[name] = dict(json.load(f), home=home)
+        stdout, stderr = bench.communicate(timeout=300)
+        got["bench"] = {"rc": bench.returncode, "stdout": stdout, "stderr": stderr, "detail": bench_detail,
+                        "cwd": bench_cwd}
         after = _files(target)
     finally:
         make_writable(target)
@@ -134,6 +153,7 @@ def test_wheel_carries_every_module_and_both_sources_and_no_build_output(wheel):
     )
     want = sorted(modules + ["ssr_eval_tpu_torch/csrc/ssrio.cpp", "ssr_eval_tpu_torch/csrc/stft_magnitude.cu"])
     assert shipped == want
+    assert "ssr_eval_tpu_torch/bench.py" in shipped
     assert not any("/_build/" in n or "__pycache__" in n or n.endswith("pyproject.toml") for n in names)
     assert len(modules) > 60
 
@@ -262,3 +282,17 @@ def test_installed_port_imports_no_jax_and_writes_nothing_into_the_install(insta
     assert installed["after"] == installed["before"]
     assert "ssr_eval_tpu_torch/csrc/ssrio.cpp" in installed["before"]
     assert not [f for f in installed["before"] if "_build" in Path(f).parts]
+
+
+def test_installed_port_runs_its_benchmark(installed):
+    """python -m ssr_eval_tpu_torch.bench resolves to the install and runs
+    there (quick sizes on the CPU): its last line and detail file, nothing
+    written into its cwd."""
+    run = installed["bench"]
+    assert run["rc"] == 0, run["stderr"][-4000:]
+    target = installed["target"]
+    assert Path(installed["install"]["bench"]).resolve() == (target / "ssr_eval_tpu_torch" / "bench.py").resolve()
+    line = json.loads(run["stdout"].strip().splitlines()[-1])
+    assert line["unit"] == "utt/s/chip" and line["value"] > 0 and line["detail"]["backend"] == "cpu"
+    assert line["detail_file"] == str(run["detail"]) and run["detail"].exists()
+    assert os.listdir(run["cwd"]) == []
