@@ -44,12 +44,23 @@ Batches are padded to a fixed size with copies of their first row; padding
 rows are dropped at collation.  Every per-utterance computation is
 independent of the other rows of its batch, so a file scores the same alone
 or inside any batch.
+
+`stats` (`utils.profiling.StageTimers`) times each layer as a span: per
+batch "decode" (the wait for the next batch; "decode.native" each native
+decoder call inside it), "dispatch" ("dispatch.prep": the host->device copy
+and both input resamples; "dispatch.target": the target |STFT| and its SSIM
+moments; per family and per spec "dispatch.degrade"; per spec
+"dispatch.testee" and "dispatch.score": the output resample and the
+metrics) and "drain"; "host_infer" and "codec_wait" where those paths run
+(a host testee's degradation and the mp3 testee call are timed after the
+dispatch stage).  Counters "samples_real" and "samples_slots" give the
+native-rate samples of the real rows and of every slot of each packed
+batch, so their ratio is the share of the batch's work that is not padding.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -197,10 +208,13 @@ class EvalEngine:
         `device_specs` order; each family's spec-independent work runs once."""
         lin = x_in.shape[1]
         for fkey, gspecs in self.groups.items():
-            ctx = build_family_pre(fkey, lin)(x_in, n_in)
-            deg_apply = build_family_apply(fkey, lin)
+            with self.stats.stage("dispatch.degrade"):
+                ctx = build_family_pre(fkey, lin)(x_in, n_in)
+                deg_apply = build_family_apply(fkey, lin)
             for spec in gspecs:
-                yield spec, deg_apply(ctx, x_in, n_in, spec_params(spec, lin, self.device))
+                with self.stats.stage("dispatch.degrade"):
+                    d = deg_apply(ctx, x_in, n_in, spec_params(spec, lin, self.device))
+                yield spec, d
 
     def _fused_batch(self, x_in, n_in, gt, n_gt):
         """The sweep chain for a device testee over every device spec.  The
@@ -210,23 +224,26 @@ class EvalEngine:
         truncate-to-min length is shared across specs.
         -> (metrics [S, 4, B] in `device_specs` order, [(ye, ne)] per spec
         or None)."""
-        ratio_plan = resample_poly_plan(self.output_sr, self.evaluation_sr, 1024)
-        cfg = metric_stft_config(self.evaluation_sr)
-        mf = cfg.max_frames(gt.shape[1])
-        min_len = torch.minimum(ratio_plan.out_length(n_in), n_gt)
-        tgt_sp = stft_magnitude(gt, min_len, cfg, mf)
-        nf = n_frames_for_length(cfg, min_len)
-        m2 = (torch.arange(mf, device=gt.device)[None, :] < nf[:, None]).to(tgt_sp.dtype)
-        moments = ssim_target_moments(tgt_sp * m2[:, :, None])
+        with self.stats.stage("dispatch.target"):
+            ratio_plan = resample_poly_plan(self.output_sr, self.evaluation_sr, 1024)
+            cfg = metric_stft_config(self.evaluation_sr)
+            mf = cfg.max_frames(gt.shape[1])
+            min_len = torch.minimum(ratio_plan.out_length(n_in), n_gt)
+            tgt_sp = stft_magnitude(gt, min_len, cfg, mf)
+            nf = n_frames_for_length(cfg, min_len)
+            m2 = (torch.arange(mf, device=gt.device)[None, :] < nf[:, None]).to(tgt_sp.dtype)
+            moments = ssim_target_moments(tgt_sp * m2[:, :, None])
 
         want_audio = self.save_processed_result or self.metrics_backend == "host_float64"
         state = self._testee_state()
         rows, audio = [], []
         for _, d in self._degraded(x_in, n_in):
-            y, ny = self.testee.infer_batch(d, n_in, state)
-            ye, ne = self._resample_out(y, ny)
-            m = spectral_metrics_with_target(ye, min_len, tgt_sp, cfg, mf, moments)
-            rows.append(torch.stack([m[k] for k in METRIC_KEYS]))
+            with self.stats.stage("dispatch.testee"):
+                y, ny = self.testee.infer_batch(d, n_in, state)
+            with self.stats.stage("dispatch.score"):
+                ye, ne = self._resample_out(y, ny)
+                m = spectral_metrics_with_target(ye, min_len, tgt_sp, cfg, mf, moments)
+                rows.append(torch.stack([m[k] for k in METRIC_KEYS]))
             if want_audio:
                 audio.append((ye, ne))
         return torch.stack(rows), (audio if want_audio else None)
@@ -301,7 +318,8 @@ class EvalEngine:
         # infer -> resample -> metrics chain.
         d = torch.from_numpy(d_h).to(self.device)
         nd = torch.from_numpy(n_in_h).to(self.device)
-        y, ny = self.testee.infer_batch(d, nd, self._testee_state())
+        with self.stats.stage("dispatch.testee"):
+            y, ny = self.testee.infer_batch(d, nd, self._testee_state())
         marr, audio = self._score_batch(y, ny, gt, n_gt)
         self._collate(results, paths, idxs, spec, marr, audio, n_real)
 
@@ -344,6 +362,8 @@ class EvalEngine:
         return cls._mono_row(x), int(sr)
 
     def _pack_batch(self, sr, b, rows):
+        self.stats.add("samples_real", sum(len(x) for _, x in rows))
+        self.stats.add("samples_slots", self.batch_size * b)
         chunk = list(rows)
         n_real = len(chunk)
         while len(chunk) < self.batch_size:
@@ -433,7 +453,8 @@ class EvalEngine:
             chunk_size = max(self.batch_size * 4, 32)
             for start in range(0, len(paths), chunk_size):
                 chunk = [str(p) for p in paths[start : start + chunk_size]]
-                decoded = flac_native.decode_batch(chunk, self.io_workers)
+                with self.stats.stage("decode.native"):
+                    decoded = flac_native.decode_batch(chunk, self.io_workers)
                 for idx, (x, sr) in enumerate(decoded, start=start):
                     yield idx, self._mono_row(x), int(sr)
 
@@ -464,12 +485,11 @@ class EvalEngine:
         pending, mp3_pending = [], []
         stream = self._stream_batches(paths)
         while True:
-            t = time.perf_counter()
-            item = next(stream, None)
-            self.stats.seconds["decode"] += time.perf_counter() - t
+            with self.stats.stage("decode"):
+                item = next(stream, None)
             if item is None:
+                self.stats.counts["decode"] -= 1  # a count a batch; the stream's end is none
                 break
-            self.stats.counts["decode"] += 1
             self._process_batch(item, results, paths, pending, mp3_pending, codec_ex)
         with self.stats.stage("drain"):
             while pending:
@@ -483,11 +503,12 @@ class EvalEngine:
         if not self.specs:
             return
         with self.stats.stage("dispatch"):
-            x = torch.from_numpy(xb).to(self.device)
-            if x.dtype == torch.int16:
-                x = x.to(torch.float32) / 32768.0
-            n = torch.from_numpy(lens).to(self.device)
-            x_in, n_in, gt, n_gt = self._prep(x, n, sr, b)
+            with self.stats.stage("dispatch.prep"):
+                x = torch.from_numpy(xb).to(self.device)
+                if x.dtype == torch.int16:
+                    x = x.to(torch.float32) / 32768.0
+                n = torch.from_numpy(lens).to(self.device)
+                x_in, n_in, gt, n_gt = self._prep(x, n, sr, b)
             if self.mp3_specs or not self.device_testee:
                 # Host copies for the codec jobs and the host testee; taken
                 # before the fused chain is queued, so the wait is short.

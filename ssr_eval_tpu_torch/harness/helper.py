@@ -168,7 +168,14 @@ class SSR_Eval_Helper:
         runs the whole sweep and writes its JSON.  (The JAX package also
         shards one batch over several devices of a process; a
         one-card-per-process layout has no counterpart of that.)
+
+        The call is the span "job" of `engine.stats`, and the engine's pass
+        over the files inside it "job.evaluate_files".
         """
+        with self.engine.stats.stage("job"):
+            return self._evaluate(limit_test_nums, limit_test_speaker, resume, verbose, multihost)
+
+    def _evaluate(self, limit_test_nums, limit_test_speaker, resume, verbose, multihost):
         if multihost not in ("auto", True, False):
             raise ValueError(f"multihost must be 'auto', True or False, got {multihost!r}")
         rank, world = group_rank_and_size()
@@ -223,7 +230,8 @@ class SSR_Eval_Helper:
             process_journal_path(journal_path, rank, world) if use_multihost else journal_path
         )
         try:
-            per_file = self.engine.evaluate_files(my_todo) if my_todo else {}
+            with self.engine.stats.stage("job.evaluate_files"):
+                per_file = self.engine.evaluate_files(my_todo) if my_todo else {}
         finally:
             self.engine.journal.close()
             self.engine.journal = None

@@ -1,8 +1,15 @@
 """Tracing and throughput accounting.
 
-- `StageTimers`: wall-clock accounting per pipeline stage, exposed by the
-  engine as ``engine.stats`` and summarized with utterances per second and
-  the decoders that ran ("native_batch", "python_pool").
+- `StageTimers`: the program's tracer, exposed by the engine as
+  ``engine.stats``.  ``stage(name)`` is a span: it adds its host-clock
+  seconds to ``seconds[name]`` and one to ``counts[name]``, always; while a
+  torch profiler runs it also opens ``record_function("ssr:" + name)``, so
+  the span lies on the profiler's timeline beside the device's work.  A
+  child span carries its parent in a dotted name (``dispatch.degrade``
+  inside ``dispatch``).  ``add(name, n)`` counts work at the same
+  boundaries (``counters``).  ``summary()`` groups each child under its
+  parent, with utterances per second and the decoders that ran
+  ("native_batch", "python_pool").
 - `device_trace`: a `torch.profiler` trace (CPU activities, and CUDA ones
   where a card is present) written into a directory as a Chrome/TensorBoard
   trace; enabled with ``EvalEngine(..., profile_dir=...)`` or
@@ -16,38 +23,75 @@ import os
 import time
 from collections import defaultdict
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_PREFIX = "ssr:"
+
+
+class _Span:
+    """One timed span.  With no profiler running it costs two clock reads
+    and the accumulation: no `record_function` and no dispatcher call (the
+    profiler's own Python flag decides)."""
+
+    __slots__ = ("_timers", "_name", "_t", "_rf")
+
+    def __init__(self, timers, name):
+        self._timers = timers
+        self._name = name
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(SPAN_PREFIX + self._name)
+            self._rf.__enter__()
+        else:
+            self._rf = None
+        self._t = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t
+        self._timers.seconds[self._name] += dt
+        self._timers.counts[self._name] += 1
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
 
 class StageTimers:
     def __init__(self):
         self.seconds = defaultdict(float)
         self.counts = defaultdict(int)
+        self.counters = defaultdict(int)
         self.utterances = 0
         self.decoders = set()
         self._t0 = time.perf_counter()
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds[name] += time.perf_counter() - t
-            self.counts[name] += 1
+    def stage(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def add(self, name: str, n: int):
+        self.counters[name] += n
 
     def add_utterances(self, n: int):
         self.utterances += n
 
     def summary(self) -> dict:
         total = time.perf_counter() - self._t0
+        stages = {}
+        for k in sorted(self.seconds):
+            parent, _, child = k.partition(".")
+            entry = {"s": round(self.seconds[k], 4), "calls": self.counts[k]}
+            if child:
+                stages.setdefault(parent, {}).setdefault("children", {})[child] = entry
+            else:
+                stages.setdefault(parent, {}).update(entry)
         return {
             "total_s": round(total, 4),
             "utterances": self.utterances,
             "utterances_per_s": round(self.utterances / total, 3) if total > 0 else 0.0,
             "decoders": sorted(self.decoders),
-            "stages": {
-                k: {"s": round(v, 4), "calls": self.counts[k]}
-                for k, v in sorted(self.seconds.items())
-            },
+            "stages": stages,
+            "counters": dict(sorted(self.counters.items())),
         }
 
 
@@ -59,7 +103,6 @@ def device_trace(profile_dir: str | None):
     if not profile_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     os.makedirs(profile_dir, exist_ok=True)
