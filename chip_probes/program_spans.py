@@ -16,12 +16,18 @@ them.  Prints one JSON object:
   dispatch children's sum over dispatch, decode.native over decode; per
   job: the spans counted (the decode stream's last, empty step is one
   more a pass), the helper's self time (job less job.evaluate_files); the
-  padding share 100 x (1 - samples_real / samples_slots);
+  padding share 100 x (1 - samples_real / samples_slots); the share of
+  batches that replayed the engine's CUDA graphs (dispatch_graphed over
+  dispatch_graphed + dispatch_eager), the graphs captured per job and in
+  set-up, and the `dispatch.replay` ms a batch;
 - from the traced jobs, per `ssr:` span name: spans, device ops launched
   inside (by correlation id), device ms of those ops, device idle ms inside
   the spans (their union less the device intervals); the longest idle gaps
   named by the innermost `ssr:` span and by the innermost host event (what
   the benchmark's breakdown prints);
+- per `drain` span, whether it ended only after every device op launched
+  before it began had finished (it waited for the newest batch, not only
+  for the batch it collects), and by how much;
 - a traced job's wall over an untraced one's (medians), and whether any
   `ssr:` event reached the benchmark's device-op table.
 
@@ -110,6 +116,28 @@ def gaps_by_span(spans, device, end, n=10):
     return out
 
 
+def drain_waits(spans, device, launches):
+    """Per `drain` span: ms from the end of the last device op launched
+    before the span began to the span's end (>= 0: the drain waited for
+    everything queued before it).  -> {drains, waited_for_all, median and
+    smallest ms after the last op}."""
+    ops = sorted((launches[cid], e) for _, e, cid in device if cid in launches)
+    at = [t for t, _ in ops]
+    last_end, m = [], float("-inf")
+    for _, e in ops:
+        m = max(m, e)
+        last_end.append(m)
+    lags = []
+    for name, s, e in spans:
+        k = bisect.bisect_left(at, s)
+        if name == "drain" and k:
+            lags.append((e - last_end[k - 1]) / 1e3)
+    if not lags:
+        return None
+    return {"drains": len(lags), "waited_for_all": sum(x >= 0 for x in lags),
+            "median_ms_after_last_op": sorted(lags)[len(lags) // 2], "min_ms_after_last_op": min(lags)}
+
+
 def analyse(events, window_s):
     from benchmark.harness import trace as bench_trace
 
@@ -127,6 +155,7 @@ def analyse(events, window_s):
     return {
         "spans": span_table(spans, device, launches),
         "idle_gaps_by_program_span": gaps_by_span(spans, device, window_s * 1e6),
+        "drain_waits": drain_waits(spans, device, launches),
         "idle_gaps_as_the_benchmark_names_them": [list(g) for g in summary.gaps],
         "benchmark_device_ops_named_ssr": sorted(k for k in summary.by_name if k.startswith(PROGRAM)),
         "benchmark_busy_s": summary.busy_s,
@@ -162,6 +191,7 @@ def main(argv=None) -> int:
         os.chdir(workdir)
         prep = bench_run.prepare(cell, args.seed, args.device, workdir)
         helper, stats = prep.helper, prep.helper.engine.stats
+        setup_captures = getattr(stats, "counters", {}).get("graph_captures", 0)
         evaluate = cell.traffic["evaluate"]
 
         def job():
@@ -197,8 +227,10 @@ def main(argv=None) -> int:
 
     batches = total(plain, "counts", "decode")
     per_batch = {k: 1e3 * total(plain, "seconds", k) / batches for k in sorted({k for j in plain for k in j["seconds"]})}
-    children = ("dispatch.prep", "dispatch.target", "dispatch.degrade", "dispatch.testee", "dispatch.score")
+    children = ("dispatch.prep", "dispatch.target", "dispatch.degrade", "dispatch.testee", "dispatch.score",
+                "dispatch.replay")
     real, slots = total(plain, "counters", "samples_real"), total(plain, "counters", "samples_slots")
+    graphed, eager = total(plain, "counters", "dispatch_graphed"), total(plain, "counters", "dispatch_eager")
     t_batches = total(traced, "counts", "decode")
     spans = trace["spans"]
     out = {
@@ -217,6 +249,10 @@ def main(argv=None) -> int:
         "helper_self_ms_per_job": (1e3 * (total(plain, "seconds", "job") - total(plain, "seconds", "job.evaluate_files"))
                                    / len(plain) if "job" in per_batch else None),
         "pad_share": 100.0 * (1 - real / slots) if slots else None,
+        "graphed_share": 100.0 * graphed / (graphed + eager) if graphed + eager else None,
+        "graph_captures_per_job": total(plain, "counters", "graph_captures") / len(plain),
+        "graph_captures_in_setup": setup_captures,
+        "dispatch_replay_ms_per_batch": per_batch.get("dispatch.replay"),
         "traced": {
             "jobs": len(traced), "batches": t_batches, "window_s": window,
             "dispatch_device_ops_per_batch": (spans["dispatch"]["device_ops"] / t_batches

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ssr_eval_tpu_torch.degrade.plan import DegradationSpec
+from ssr_eval_tpu_torch.device import device_cache
 from ssr_eval_tpu_torch.dsp.filters import (
     blocked_plan_arrays,
     complex_from_parts,
@@ -129,7 +130,7 @@ def iir_host_arrays(spec: DegradationSpec, max_len: int, block: int | None) -> d
     }
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(maxsize=256)
 def spec_params(spec: DegradationSpec, max_len: int, device: torch.device) -> dict:
     """Per-spec parameters on `device`: host design work happens once per
     (spec, bucket) and the arrays are uploaded once and cached."""
@@ -147,7 +148,7 @@ def spec_params(spec: DegradationSpec, max_len: int, device: torch.device) -> di
     raise ValueError(f"family {spec.family!r} is not a device degradation")
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _resample_weights(sr_in: int, sr_out: int, max_len: int, device: torch.device):
     """-> (ResamplePlan, its Wd on `device`), cached."""
     plan = resample_poly_plan(sr_in, sr_out, max_len)

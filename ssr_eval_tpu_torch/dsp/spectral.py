@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssr_eval_tpu_torch.device import device_cache
 from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
 
 
@@ -85,7 +86,7 @@ def _padded_window64(n_fft: int, win_length: int) -> np.ndarray:
     return win
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def window_tensor(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
     """The padded analysis/synthesis window as a float32 tensor on `device`
     (built in float64, cast once; cached so no host copy per call)."""
@@ -206,7 +207,7 @@ def _wss_semi_infinite(n_fft: int, hop: int, win_len: int, total: int) -> np.nda
     return W.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _wss_tensors(n_fft: int, hop: int, win_len: int, n_frames: int, device: torch.device):
     """(W [total], shifted windows [n_frames + 1, total]) on `device`.
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ssr_eval_tpu_torch.device import device_cache
 from ssr_eval_tpu_torch.utils.flops import analytic_cost, stft_magnitude_backward_cost, stft_magnitude_cost
 
 MAX_N_FFT = 4096
@@ -112,7 +113,7 @@ def _fft_plan(n_fft: int) -> FftPlan:
     return FftPlan("bluestein", m_len, _stockham_twiddles(m_len), _as_f32(chirp), _as_f32(d))
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _tables(n_fft: int, device: torch.device) -> tuple[int, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(fft_len, twiddle, table_a, table_b) of `_fft_plan(n_fft)` on `device`."""
     plan = _fft_plan(n_fft)

@@ -1,4 +1,4 @@
-"""Batched evaluation engine on one device, run eagerly.
+"""Batched evaluation engine on one device.
 
 Dataflow per (native_sr, length-bucket) batch of utterances:
 
@@ -9,9 +9,27 @@ Dataflow per (native_sr, length-bucket) batch of utterances:
            for each family (specs grouped by `family_key`):
              spec-independent degradation work       (once per utterance,
                                                       e.g. the fft STFT)
-             for each spec: degrade -> testee.infer_batch
-                            -> resample output->evaluation_sr -> metrics
+             then each spec's degradation
+           for each spec: testee.infer_batch
+           for each spec: resample output->evaluation_sr -> metrics
       └─ host: collate per-file metric dicts (reference-compatible keys)
+
+The fused chain of a device testee runs in those three phases, `_pre`
+(input resamples, target, degradations), `_infer` (the testee) and `_post`
+(output resamples, metrics, the [S, 4, B] stack).  Each spec's work is
+independent of the others', so the order changes no result.
+
+On a CUDA card, with a device testee scoring on the device and nothing
+that reads a batch's device buffers after the next batch (no saved audio,
+no `host_float64` metrics, no mp3 specs), `_pre` and `_post` are CUDA
+graphs, captured once per batch key (native rate, bucket, sample type; the
+post phase also per testee output shape) right after that key's first
+batch has run eagerly, and replayed for every later batch: the host batch
+is copied into the graphs' static inputs, `_pre` is replayed, the testee
+runs eagerly on its outputs, its outputs are copied into `_post`'s inputs
+and `_post` is replayed.  Every such batch's metrics leave through a
+stream-ordered copy into a pinned host slot, and the drain waits on that
+batch's event alone.  Everywhere else every batch runs eagerly.
 
 mp3 specs round-trip through the host codec: one job per utterance goes to
 a codec thread pool when its batch is dispatched, and the results are
@@ -35,10 +53,10 @@ helper shards files over it; and `profile_dir` (or
 SSR_EVAL_TPU_PROFILE) writes a torch.profiler trace of each
 `evaluate_files` call.  The JAX engine's XLA program-shape knobs
 (`infer_fold_max`, `mega_batches`, `wire_codec`, `spec_unroll`,
-`spec_flat`, `spec_single`) have no counterpart: the port runs eagerly.
-As the JAX engine does, it records each distinct batch program's key,
-argument shapes and call count (`_cost_args`, `_cost_calls`), which
-`utils.flops.engine_program_costs` reads.
+`spec_flat`, `spec_single`) have no counterpart: the port runs eagerly
+or replays CUDA graphs.  As the JAX engine does, it records each distinct
+batch program's key, argument shapes and call count (`_cost_args`,
+`_cost_calls`), which `utils.flops.engine_program_costs` reads.
 
 Batches are padded to a fixed size with copies of their first row; padding
 rows are dropped at collation.  Every per-utterance computation is
@@ -47,21 +65,28 @@ or inside any batch.
 
 `stats` (`utils.profiling.StageTimers`) times each layer as a span: per
 batch "decode" (the wait for the next batch; "decode.native" each native
-decoder call inside it), "dispatch" ("dispatch.prep": the host->device copy
-and both input resamples; "dispatch.target": the target |STFT| and its SSIM
-moments; per family and per spec "dispatch.degrade"; per spec
-"dispatch.testee" and "dispatch.score": the output resample and the
-metrics) and "drain"; "host_infer" and "codec_wait" where those paths run
-(a host testee's degradation and the mp3 testee call are timed after the
-dispatch stage).  Counters "samples_real" and "samples_slots" give the
-native-rate samples of the real rows and of every slot of each packed
-batch, so their ratio is the share of the batch's work that is not padding.
+decoder call inside it), "dispatch" ("dispatch.prep": the host->device copy,
+and on a batch that runs eagerly both input resamples; "dispatch.target":
+the target |STFT| and its SSIM moments; per family and per spec
+"dispatch.degrade"; per spec "dispatch.testee" and "dispatch.score": the
+output resample and the metrics; "dispatch.replay": each graph replay, the
+second with the copy of the testee's outputs into its inputs) and "drain";
+"host_infer" and "codec_wait" where those paths run (a host testee's
+degradation and the mp3 testee call are timed after the dispatch stage).
+"dispatch.target", "dispatch.degrade" and "dispatch.score" open only on a
+batch that runs eagerly or captures.  Counters "samples_real" and
+"samples_slots" give the native-rate samples of the real rows and of every
+slot of each packed batch, so their ratio is the share of the batch's work
+that is not padding; "dispatch_graphed" and "dispatch_eager" count the
+batches that replayed and those that ran eagerly, "graph_captures" the
+graphs captured.
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,12 +97,14 @@ from ssr_eval_tpu_torch.degrade.apply import (
     family_key,
     spec_params,
 )
+from ssr_eval_tpu_torch.device import held_constants
 from ssr_eval_tpu_torch.dsp.resample import (
     apply_resample,
     resample_poly_plan,
     windowed_sinc_plan,
 )
 from ssr_eval_tpu_torch.dsp.spectral import n_frames_for_length, stft_magnitude
+from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
 from ssr_eval_tpu_torch.harness.testee import state_from_numpy
 from ssr_eval_tpu_torch.io.audio import decode_audio, decode_audio_i16, native_flac, write_wav
 from ssr_eval_tpu_torch.metrics.kernels import (
@@ -99,12 +126,46 @@ METRIC_KEYS = ("lsd", "log_sispec", "sispec", "ssim")
 MAX_PENDING = 2
 
 
+class _Graph(NamedTuple):
+    """A captured phase: the graph, the outputs each replay writes, the
+    |STFT| kernel launches inside it, and the device constants its capture
+    read (held here, so no cache eviction frees memory the graph reads)."""
+
+    graph: torch.cuda.CUDAGraph
+    out: object
+    launches: int
+    constants: list
+
+    def replay(self):
+        self.graph.replay()
+        stft_magnitude_kernel.launches += self.launches  # counts kernel executions
+        return self.out
+
+
+class _Captured(NamedTuple):
+    """One batch key's graphs: the static inputs (the batch's samples and
+    lengths), the pre phase, and per testee output signature the post
+    phase with its static inputs."""
+
+    x: torch.Tensor
+    n: torch.Tensor
+    pre: _Graph
+    post: dict
+
+
+def _signature(outs):
+    return tuple((tuple(y.shape), y.dtype, tuple(ny.shape), ny.dtype) for y, ny in outs)
+
+
 def _env_flag(name: str, default: str) -> bool:
     """"0", "false" and "" mean off (the JAX package's env-flag rule)."""
     return os.environ.get(name, default) not in ("0", "false", "")
 
 
 class EvalEngine:
+    # Off: every batch runs eagerly (tests hold the graphs against it).
+    _use_graphs = True
+
     def __init__(
         self,
         specs,
@@ -154,6 +215,12 @@ class EvalEngine:
         self.metrics_backend = metrics_backend
         self.stats = StageTimers()
         self.device_testee = hasattr(testee, "infer_batch")
+        self._graphs = {}  # batch key -> _Captured
+        self._graph_pool = None
+        self._capture_stream = None
+        self._host_ring = []  # pinned [S, 4, B] metric slots of graphed batches
+        self._staging = [None] * (MAX_PENDING + 1)  # pinned input slots, one per result slot
+        self._ring_at = 0
         self._weights = {}  # plan key -> device copy of its Wd
         self._state = (None, None)  # (testee's state, its device copy)
         # Each distinct batch program dispatched: key -> (fn, argument
@@ -192,7 +259,10 @@ class EvalEngine:
     # ------------------------------------------------------------------
 
     def _prep(self, x_nat, len_nat, native_sr, lnat):
-        """-> x_in, n_in (input rate), gt, n_gt (evaluation rate)."""
+        """int16 or float32 samples at the native rate -> x_in, n_in (input
+        rate), gt, n_gt (evaluation rate)."""
+        if x_nat.dtype == torch.int16:
+            x_nat = x_nat.to(torch.float32) / 32768.0
         in_plan, Wi = self._plan("in", native_sr, self.input_sr, lnat)
         gt_plan, Wg = self._plan("gt", native_sr, self.evaluation_sr, lnat)
         x_in, n_in = apply_resample(x_nat, len_nat, in_plan, int(in_plan.out_length(lnat)), Wi)
@@ -216,14 +286,13 @@ class EvalEngine:
                     d = deg_apply(ctx, x_in, n_in, spec_params(spec, lin, self.device))
                 yield spec, d
 
-    def _fused_batch(self, x_in, n_in, gt, n_gt):
-        """The sweep chain for a device testee over every device spec.  The
-        target |STFT| and its SSIM moments run once per utterance;
-        degrade -> infer -> score runs per spec.  Device testees preserve
-        lengths (the reference itself asserts |delta len| < 100), so the
-        truncate-to-min length is shared across specs.
-        -> (metrics [S, 4, B] in `device_specs` order, [(ye, ne)] per spec
-        or None)."""
+    def _pre(self, x_in, n_in, gt, n_gt):
+        """The fused chain's first phase: the target |STFT| and its SSIM
+        moments once per utterance, then every device spec's degradation.
+        Device testees preserve lengths (the reference itself asserts
+        |delta len| < 100), so the truncate-to-min length is shared across
+        specs.  -> {"n_in", "min_len", "tgt_sp", "moments", "degraded"
+        (one batch per device spec, in `device_specs` order)}."""
         with self.stats.stage("dispatch.target"):
             ratio_plan = resample_poly_plan(self.output_sr, self.evaluation_sr, 1024)
             cfg = metric_stft_config(self.evaluation_sr)
@@ -233,20 +302,170 @@ class EvalEngine:
             nf = n_frames_for_length(cfg, min_len)
             m2 = (torch.arange(mf, device=gt.device)[None, :] < nf[:, None]).to(tgt_sp.dtype)
             moments = ssim_target_moments(tgt_sp * m2[:, :, None])
+        degraded = [d for _, d in self._degraded(x_in, n_in)]
+        return {"n_in": n_in, "min_len": min_len, "tgt_sp": tgt_sp, "moments": moments, "degraded": degraded}
 
-        want_audio = self.save_processed_result or self.metrics_backend == "host_float64"
+    def _infer(self, pre):
+        """The testee over each degraded batch -> [(y, ny)] per spec."""
         state = self._testee_state()
-        rows, audio = [], []
-        for _, d in self._degraded(x_in, n_in):
+        outs = []
+        for d in pre["degraded"]:
             with self.stats.stage("dispatch.testee"):
-                y, ny = self.testee.infer_batch(d, n_in, state)
+                outs.append(self.testee.infer_batch(d, pre["n_in"], state))
+        return outs
+
+    def _post(self, pre, outs):
+        """The fused chain's last phase: each spec's output resample and
+        metrics -> (metrics [S, 4, B] in `device_specs` order, [(ye, ne)]
+        per spec or None)."""
+        cfg = metric_stft_config(self.evaluation_sr)
+        mf = pre["tgt_sp"].shape[1]
+        want_audio = self.save_processed_result or self.metrics_backend == "host_float64"
+        rows, audio = [], []
+        for y, ny in outs:
             with self.stats.stage("dispatch.score"):
                 ye, ne = self._resample_out(y, ny)
-                m = spectral_metrics_with_target(ye, min_len, tgt_sp, cfg, mf, moments)
+                m = spectral_metrics_with_target(ye, pre["min_len"], pre["tgt_sp"], cfg, mf, pre["moments"])
                 rows.append(torch.stack([m[k] for k in METRIC_KEYS]))
             if want_audio:
                 audio.append((ye, ne))
         return torch.stack(rows), (audio if want_audio else None)
+
+    def _fused_batch(self, x_in, n_in, gt, n_gt):
+        """The sweep chain for a device testee over every device spec:
+        `_pre`, `_infer`, `_post`.  -> (metrics [S, 4, B], [(ye, ne)] per
+        spec or None)."""
+        pre = self._pre(x_in, n_in, gt, n_gt)
+        return self._post(pre, self._infer(pre))
+
+    # ------------------------------------------------------------------
+    # CUDA graphs of the fused chain
+    # ------------------------------------------------------------------
+
+    def _graphs_engage(self):
+        """Whether this engine's batches go through CUDA graphs: a device
+        testee scoring on the card, and nothing that reads a batch's device
+        buffers after the next batch replays over them."""
+        return (
+            self._use_graphs
+            and self.device.type == "cuda"
+            and self.device_testee
+            and bool(self.device_specs)
+            and not self.mp3_specs
+            and self.metrics_backend == "device"
+            and not self.save_processed_result
+        )
+
+    def _capture(self, fn):
+        """Capture fn() as a CUDA graph in the engine's pool -> _Graph.
+
+        fn runs once first on the capture stream, so per-stream lazy state
+        (cuBLAS workspaces) exists before the capture; the |STFT| launches
+        of that run and of the capture are taken back off the count, which
+        counts kernel executions.  The cuFFT plans the graph runs stay in
+        torch's plan cache (4096 plans; the sweep uses a few dozen)."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream, launches = self._capture_stream, stft_magnitude_kernel.launches
+        with held_constants() as constants:
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                fn()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            before = stft_magnitude_kernel.launches
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                out = fn()
+        captured = stft_magnitude_kernel.launches - before
+        stft_magnitude_kernel.launches = launches
+        self.stats.add("graph_captures", 1)
+        return _Graph(graph, out, captured, constants)
+
+    def _capture_post(self, cap, outs):
+        """Capture the post phase over the pre graph's outputs and static
+        copies of the testee outputs `outs` (the pre graph's outputs hold a
+        batch's data)."""
+        statics = [(y.clone(), ny.clone()) for y, ny in outs]
+        pre = cap.pre.out[1]
+        cap.post[_signature(outs)] = (statics, self._capture(lambda: self._post(pre, statics)[0]))
+
+    def _dispatch_graphed(self, sr, b, xb, lens):
+        """One batch through its key's graphs; the key's first batch, or the
+        first with a new testee output signature, runs eagerly and then
+        captures.  -> (`_fused_batch`'s arguments, metrics [S, 4, B] on the
+        device, whether both phases replayed)."""
+        key = (sr, b, xb.dtype.str)
+        cap = self._graphs.get(key)
+        with self.stats.stage("dispatch.prep"):
+            if cap is None:
+                x, n = torch.from_numpy(xb).to(self.device), torch.from_numpy(lens).to(self.device)
+                args = self._prep(x, n, sr, b)
+            else:
+                hn, hx = self._staged(lens, xb)
+                cap.n.copy_(hn, non_blocking=True)
+                cap.x.copy_(hx, non_blocking=True)
+        if cap is None:
+            pre = self._pre(*args)
+            outs = self._infer(pre)
+            mstack, _ = self._post(pre, outs)
+
+            def pre_phase():
+                a = self._prep(x, n, sr, b)
+                return a, self._pre(*a)
+
+            cap = self._graphs[key] = _Captured(x, n, self._capture(pre_phase), {})
+            cap.pre.graph.replay()  # fills the pre graph's outputs for the post capture; counts no batch
+            self._capture_post(cap, outs)
+            return args, mstack, False
+        with self.stats.stage("dispatch.replay"):
+            args, pre = cap.pre.replay()
+        outs = self._infer(pre)
+        post = cap.post.get(_signature(outs))
+        if post is None:
+            mstack, _ = self._post(pre, outs)
+            self._capture_post(cap, outs)
+            return args, mstack, False
+        statics, graph = post
+        with self.stats.stage("dispatch.replay"):
+            for (ys, nys), (y, ny) in zip(statics, outs):
+                ys.copy_(y)
+                nys.copy_(ny)
+            mstack = graph.replay()
+        return args, mstack, True
+
+    def _staged(self, *arrays):
+        """Host arrays -> copies in this batch's pinned staging slot (views
+        of one buffer, grown as needed).  The slot goes with the batch's
+        result slot: batch k's comes round at batch k + MAX_PENDING + 1,
+        after batch k's drain waited on an event that follows its copies
+        to the card."""
+        src = [torch.from_numpy(a) for a in arrays]
+        need = sum(t.nbytes for t in src)
+        slot = self._staging[self._ring_at]
+        if slot is None or slot.numel() < need:
+            slot = self._staging[self._ring_at] = torch.empty(need, dtype=torch.uint8, pin_memory=True)
+        out, at = [], 0
+        for t in src:  # widest dtype first keeps every view aligned
+            out.append(slot[at : at + t.nbytes].view(t.dtype).view(t.shape).copy_(t))
+            at += t.nbytes
+        return out
+
+    def _copy_out(self, mstack):
+        """Copy a batch's metrics into the next pinned host slot, in stream
+        order -> (slot, event recorded after the copy).  The ring has
+        MAX_PENDING + 1 slots, so a slot comes round again only after the
+        batch that held it was drained."""
+        if not self._host_ring:
+            self._host_ring = [
+                torch.empty(mstack.shape, dtype=mstack.dtype, pin_memory=True) for _ in range(MAX_PENDING + 1)
+            ]
+        slot = self._host_ring[self._ring_at]
+        self._ring_at = (self._ring_at + 1) % len(self._host_ring)
+        slot.copy_(mstack, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return slot, done
 
     def _record_cost(self, key, fn, args):
         """Remember a dispatched program's argument shapes (no buffer
@@ -502,13 +721,20 @@ class EvalEngine:
         n_real = len(idxs)
         if not self.specs:
             return
+        graphs = self._graphs_engage()
         with self.stats.stage("dispatch"):
-            with self.stats.stage("dispatch.prep"):
-                x = torch.from_numpy(xb).to(self.device)
-                if x.dtype == torch.int16:
-                    x = x.to(torch.float32) / 32768.0
-                n = torch.from_numpy(lens).to(self.device)
-                x_in, n_in, gt, n_gt = self._prep(x, n, sr, b)
+            if graphs:
+                with torch.cuda.device(self.device):
+                    args, mstack, graphed = self._dispatch_graphed(sr, b, xb, lens)
+                    pending.append((idxs, self._copy_out(mstack), None, n_real, None))
+            else:
+                graphed = False
+                with self.stats.stage("dispatch.prep"):
+                    x = torch.from_numpy(xb).to(self.device)
+                    n = torch.from_numpy(lens).to(self.device)
+                    args = self._prep(x, n, sr, b)
+            self.stats.add("dispatch_graphed" if graphed else "dispatch_eager", 1)
+            x_in, n_in, gt, n_gt = args
             if self.mp3_specs or not self.device_testee:
                 # Host copies for the codec jobs and the host testee; taken
                 # before the fused chain is queued, so the wait is short.
@@ -518,10 +744,11 @@ class EvalEngine:
                 futs = self._mp3_submit(codec_ex, paths, idxs, spec, x_in_h, n_in_h, n_real)
                 mp3_pending.append((idxs, spec, futs, x_in_h.shape, n_in_h, gt, n_gt, n_real))
             if self.device_testee and self.device_specs:
-                self._record_cost(("fused", tuple(self.groups), sr, b), self._fused_batch, (x_in, n_in, gt, n_gt))
-                mstack, audio = self._fused_batch(x_in, n_in, gt, n_gt)
-                gt_pair = (gt, n_gt) if self.metrics_backend == "host_float64" else None
-                pending.append((idxs, mstack, audio, n_real, gt_pair))
+                self._record_cost(("fused", tuple(self.groups), sr, b), self._fused_batch, args)
+                if not graphs:
+                    mstack, audio = self._fused_batch(*args)
+                    gt_pair = (gt, n_gt) if self.metrics_backend == "host_float64" else None
+                    pending.append((idxs, (mstack, None), audio, n_real, gt_pair))
         if not self.device_testee:
             for spec, d in self._degraded(x_in, n_in):
                 self._host_infer_and_score(results, paths, idxs, spec, d.cpu().numpy(), n_in_h, gt, n_gt, n_real)
@@ -532,9 +759,15 @@ class EvalEngine:
             self._mp3_collect(results, paths, mp3_pending.pop(0))
 
     def _drain_one(self, results, paths, item):
-        """Bring one batch's metrics to the host and collate them."""
-        idxs, mstack, audio, n_real, gt_pair = item
-        marr = mstack.cpu().numpy()  # [S, 4, B]
+        """Bring one batch's metrics to the host and collate them: a graphed
+        engine's batch waits on its own copy's event, any other brings its
+        metrics over."""
+        idxs, (mstack, done), audio, n_real, gt_pair = item
+        if done is not None:
+            done.synchronize()
+            marr = mstack.numpy()  # [S, 4, B], its pinned slot
+        else:
+            marr = mstack.cpu().numpy()
         if gt_pair is not None:
             gt_h, ng_h = gt_pair[0].cpu().numpy(), gt_pair[1].cpu().numpy()
         for si, spec in enumerate(self.device_specs):

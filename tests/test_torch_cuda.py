@@ -17,7 +17,8 @@ convolutions against the CPU's, TF32 off); the |STFT| backward kernel
 within 1e-5 of max|grad| of its plain version (torch autograd) and of a
 float64 autograd (both float32 FFTs round at ~1e-6 of max), a row's
 gradient bit-identical alone and inside a batch, whatever the frames per
-segment.
+segment; the engine's CUDA graphs bit-identical to its eager chain (the
+same kernels on the same shapes).
 """
 
 import os
@@ -369,3 +370,112 @@ def test_cuda_backward_row_alone_equals_in_batch(card, n_fft, hop):
     for seg in (0, 1, 3, 16, mf):  # 0: the kernel's own choice
         batch = stft_kernel._backward(ext, gm, n_fft, hop, mf, win, seg)
         assert torch.equal(batch[:1], one), seg
+
+
+# The engine's CUDA graphs.  Files at 48 kHz: three share one bucket (with
+# batch 2, two batches of one key, the second part-full), two more buckets.
+GRAPH_DURS = (0.5, 0.51, 0.505, 0.8, 1.1)
+GRAPH_SETTINGS = {
+    "fft": {"setting_fft": {"cutoff_freq": [4000, 8000, 16000]}},
+    "mixed": {"setting_fft": {"cutoff_freq": [8000]}, "setting_subsampling": {"cutoff_freq": [4000]},
+              "setting_lowpass_filtering": {"filter": ["butter", "cheby", "ellip", "bessel"],
+                                            "cutoff_freq": [4000], "filter_order": [6]}},
+}
+
+
+def _graph_files(tmp_path, durs, seed=200):
+    paths = []
+    for i, dur in enumerate(durs):
+        p = str(tmp_path / f"g{i}.wav")
+        write_wav(p, speechlike(dur, 48000, seed=seed + i), 48000)
+        paths.append(p)
+    return paths
+
+
+def _graph_engine(card, family="fft", eval_sr=44100, graphs=True):
+    noise = (1e-3 * np.random.default_rng(777).standard_normal(1 << 17)).astype(np.float32)
+    specs = expand_settings(sr=44100, **GRAPH_SETTINGS[family])
+    eng = EvalEngine(specs, 44100, 44100, eval_sr, NoisyTestee(state_from_numpy(noise, card)), batch_size=2,
+                     device=card)
+    eng._use_graphs = graphs
+    return eng
+
+
+def _job(eng, paths):
+    """-> (results, the job's counter deltas, its |STFT| launches)."""
+    before, launches = dict(eng.stats.counters), stft_magnitude_kernel.launches
+    out = eng.evaluate_files(paths)
+    torch.cuda.synchronize()
+    counters = {k: eng.stats.counters.get(k, 0) - before.get(k, 0)
+                for k in ("dispatch_graphed", "dispatch_eager", "graph_captures")}
+    return out, counters, stft_magnitude_kernel.launches - launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,eval_sr", [("fft", 44100), ("fft", 48000), ("mixed", 44100)])
+def test_graphed_sweep_is_bit_identical_to_eager(card, tmp_path, family, eval_sr):
+    """A first job captures two graphs a batch key; a second captures none
+    and replays every batch.  Both score every file bit for bit as the
+    eager chain does, and count the eager chain's |STFT| launches."""
+    paths = _graph_files(tmp_path, GRAPH_DURS)
+    want, eager, eager_launches = _job(_graph_engine(card, family, eval_sr, graphs=False), paths)
+    batches = eager["dispatch_eager"]
+    assert batches == 4 and eager["dispatch_graphed"] == eager["graph_captures"] == 0
+    eng = _graph_engine(card, family, eval_sr)
+    first, c1, l1 = _job(eng, paths)
+    second, c2, l2 = _job(eng, paths)
+    assert c1 == {"dispatch_graphed": 1, "dispatch_eager": 3, "graph_captures": 6}
+    assert c2 == {"dispatch_graphed": batches, "dispatch_eager": 0, "graph_captures": 0}
+    assert l1 == l2 == eager_launches
+    assert first == want and second == want
+
+
+@pytest.mark.cuda
+def test_graphed_pending_batches_of_one_key_keep_their_data(card, tmp_path):
+    """Eight files of one bucket, batch 2: four batches of one key, up to
+    MAX_PENDING + 1 = 3 of them queued at once over the same static
+    buffers, each with its own data."""
+    paths = _graph_files(tmp_path, [0.49 + 0.001 * i for i in range(8)], seed=300)
+    want, _, _ = _job(_graph_engine(card, graphs=False), paths)
+    assert len({v["proc_fft_4000_44100"]["lsd"] for v in want.values()}) == 8
+    eng = _graph_engine(card)
+    _job(eng, paths)
+    got, counters, _ = _job(eng, paths)
+    assert counters["dispatch_graphed"] == 4 and got == want
+
+
+@pytest.mark.cuda
+def test_graph_replays_survive_evicted_constants(card, tmp_path):
+    """The graphs hold the device constants their captures read: emptied
+    caches, a freed allocator cache and fresh NaN garbage leave the replays
+    bit-identical."""
+    import gc
+
+    from ssr_eval_tpu_torch.dsp import spectral
+
+    paths = _graph_files(tmp_path, GRAPH_DURS)
+    eng = _graph_engine(card, "mixed")
+    want, _, _ = _job(eng, paths)
+    for cache in (spectral.window_tensor, spectral._wss_tensors, stft_kernel._tables, deg.spec_params,
+                  deg._resample_weights):
+        cache.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << k,), float("nan"), device=card) for k in range(8, 25) for _ in range(4)]
+    got, counters, _ = _job(eng, paths)
+    del junk
+    assert counters == {"dispatch_graphed": 4, "dispatch_eager": 0, "graph_captures": 0}
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_profiler_sees_the_kernel_in_replayed_batches(card, tmp_path):
+    paths = _graph_files(tmp_path, GRAPH_DURS)
+    eng = _graph_engine(card)
+    _job(eng, paths)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, counters, launches = _job(eng, paths)
+    assert counters["dispatch_graphed"] == 4 and counters["graph_captures"] == 0
+    names = [e.name for e in prof.events() if "stft_fft_kernel" in e.name]
+    assert len(names) >= launches == 4 * (1 + 3), (len(names), launches)

@@ -87,7 +87,7 @@ def test_no_profiler_no_record_function(speaker_dir, monkeypatch):
         assert eng.stats.seconds[name] > 0 and eng.stats.counts[name] > 0, name
     assert eng.stats.counts["decode"] == BATCHES
     assert eng.stats.counts["dispatch.testee"] == BATCHES * SPECS
-    assert set(eng.stats.counters) == {"samples_real", "samples_slots"}
+    assert set(eng.stats.counters) == {"samples_real", "samples_slots", "dispatch_eager"}
 
 
 @pytest.mark.parametrize("native", ["1", "0"])
@@ -98,7 +98,8 @@ def test_padding_counters_are_a_hand_count(speaker_dir, monkeypatch, native):
     eng = _engine()
     eng.evaluate_files(_paths(speaker_dir))
     assert eng.stats.decoders == ({"native_batch"} if native == "1" else {"python_pool"})
-    assert dict(eng.stats.counters) == {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS}
+    assert dict(eng.stats.counters) == {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS,
+                                        "dispatch_eager": BATCHES}
     assert eng.stats.counts["decode"] == BATCHES
 
 
@@ -147,7 +148,7 @@ def test_summary_groups_children_under_their_stage(speaker_dir):
     assert set(s["stages"]["dispatch"]["children"]) == {"prep", "target", "degrade", "testee", "score"}
     assert s["stages"]["decode"]["children"]["native"]["calls"] == 1
     assert s["stages"]["dispatch"]["calls"] == BATCHES
-    assert s["counters"] == {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS}
+    assert s["counters"] == {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS, "dispatch_eager": BATCHES}
     t = StageTimers()
     with t.stage("a.b"):
         pass
