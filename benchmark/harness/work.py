@@ -22,7 +22,10 @@ FLOP:
 The |STFT| kernel's least time per call: its input (the reflect-padded
 signal) read once and its output written once at HBM_BYTES_PER_S, against
 its FLOP (2.5 N log2 N per frame plus 3 per bin for the magnitude) at
-FP32_FLOP_PER_S, over real rows and real frames only.
+FP32_FLOP_PER_S, over real rows and real frames only.  Beside the metric
+|STFT|s it counts the testee's own: a configuration's `testee_stft` lists
+the |STFT| calls ({"n_fft", "hop"}) its testee makes per spec on the
+input-rate signal.
 """
 
 from __future__ import annotations
@@ -95,4 +98,6 @@ def job_work(lengths: list[int], native_sr: int, helper: dict, config: dict, fam
         flop += S * (config["testee_flop_per_sample"] * n_in + resample_flops(n_est, sr_out, sr_ev))
         flop += (1 + S) * target["flop"] + S * m_frames * (n_fft // 2 + 1) * METRIC_FLOP_PER_BIN
         stft_least += (1 + S) * least_seconds(target)
+        stft_least += S * sum(least_seconds(stft_call(n_in, c["n_fft"], c["hop"]))
+                              for c in config.get("testee_stft", ()))
     return {"flop": flop, "stft_least_s": stft_least}

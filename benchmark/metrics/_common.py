@@ -12,6 +12,58 @@ def untraced(ctx):
     return [j for j in ctx.jobs if not j.traced] or ctx.jobs
 
 
+def _total(jobs, group: str, names):
+    """Sum over `jobs` of `Job.stats[group]` at `names` (a name or a tuple
+    of names); None when no job holds any of them (a program without
+    that span or counter)."""
+    names = (names,) if isinstance(names, str) else names
+    tables = [j.stats[group] for j in jobs]
+    if not any(n in t for t in tables for n in names):
+        return None
+    return sum(t.get(n, 0) for t in tables for n in names)
+
+
+def span_ms_per_batch(ctx, name: str):
+    """Host ms of the program span `name` per engine batch, over the
+    window's untraced jobs (batches as `decode_ms_per_batch.thr` counts
+    them)."""
+    jobs = untraced(ctx)
+    batches = sum(j.batches for j in jobs)
+    seconds = _total(jobs, "seconds", name)
+    return 1e3 * seconds / batches if seconds is not None and batches else None
+
+
+def span_ms_per_job(ctx, name: str):
+    """Host ms of the program span `name` per job, over the window's
+    untraced jobs."""
+    jobs = untraced(ctx)
+    seconds = _total(jobs, "seconds", name)
+    return 1e3 * seconds / len(jobs) if seconds is not None and jobs else None
+
+
+def counter_share(ctx, part, whole):
+    """100 x the program's counters `part` over `whole` (each a name or a
+    tuple of names, summed), over the window's untraced jobs.  A counter
+    of `part` that never counted reads 0; None when none of `whole` is
+    there or they sum to 0."""
+    jobs = untraced(ctx)
+    w = _total(jobs, "counters", whole)
+    if not w:
+        return None
+    return 100.0 * (_total(jobs, "counters", part) or 0) / w
+
+
+def span_idle_ms_per_job(ctx, name: str):
+    """Device idle ms inside the program spans `name` (their union less the
+    device's busy intervals) per traced job, from the trace."""
+    tr = ctx.trace
+    traced = [j for j in ctx.jobs if j.traced]
+    entry = (tr.program or {}).get(name) if tr is not None else None
+    if entry is None or not traced:
+        return None
+    return 1e3 * entry["idle_s"] / len(traced)
+
+
 def stft_roofline(ctx):
     """100 x the kernel's least seconds for the traced jobs' |STFT| work over
     the device seconds of the kernels of that name.  None when the launches

@@ -1,7 +1,7 @@
 """95th percentile (linear interpolation) of the wall time of one
 evaluate() call, over the window's untraced jobs: the tail beside the
-median that `job_p50_ms` holds to its bound (on the card's shared host the
-tail swings too much between processes for a bound of its own)."""
+median `job_p50_ms.job` (on the card's shared host both swing too much
+between processes for a bound)."""
 
 import numpy as np
 

@@ -13,11 +13,14 @@ every job's return value is judged against it (harness/compare.py).
 
 With --trace 0 the line reports the cell's end-to-end metrics; with
 --trace 1 its per-layer metrics, from `engine.stats` over the window's
-jobs, a torch.profiler trace of `trace_jobs` more jobs run after the
-window (so the window's stage times carry no profiler cost), and the work
-counts of harness/work.py.  The last line of standard output is one JSON
-object; the numbers compared and their limits are the last lines of
-standard error.  Without a CUDA card the run exits 2 and prints no result.
+jobs (each job's delta of every span and counter), a torch.profiler trace
+of `trace_jobs` more jobs run after the window (so the window's stage
+times carry no profiler cost), and the work counts of harness/work.py.
+A cell with an end-to-end metric from the device trace profiles those
+jobs with --trace 0 as well.
+The last line of standard output is one JSON object; the numbers compared
+and their limits are the last lines of standard error.  Without a CUDA
+card the run exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -62,9 +65,24 @@ class Job(NamedTuple):
     wall_s: float
     n_utts: int
     batches: int
-    stage_s: dict
+    stage_s: dict     # STAGES -> the job's host seconds in each
     launches: int
     traced: bool
+    # The job's delta of every key of `engine.stats`: {"seconds": {span:
+    # host s}, "counts": {span: spans}, "counters": {counter: n}}
+    stats: dict
+
+
+def stats_snapshot(stats) -> dict:
+    """Copies of a `StageTimers`' three tables (an older program may keep
+    no counters)."""
+    return {"seconds": dict(stats.seconds), "counts": dict(stats.counts),
+            "counters": dict(getattr(stats, "counters", {}))}
+
+
+def stats_delta(after: dict, before: dict) -> dict:
+    """Per table, every key of `after` less its value in `before`."""
+    return {group: {k: v - before[group].get(k, 0) for k, v in table.items()} for group, table in after.items()}
 
 
 class Context(NamedTuple):
@@ -153,6 +171,12 @@ def log_fifths(jobs: list) -> None:
     log("job median by fifth of the window (ms): " + " ".join(f"{1e3 * m:.2f}" for m in meds))
 
 
+def profiled_end_to_end(cell: cells.Cell) -> bool:
+    """Whether an end-to-end metric of the cell reads the device trace, so
+    that an untraced run profiles its after-window jobs too."""
+    return any(m["source"] == "device_trace" for m in cell.end_to_end)
+
+
 class Prepared(NamedTuple):
     helper: object
     pcm: dict
@@ -172,9 +196,12 @@ def prepare(cell: cells.Cell, seed: int, device: str, workdir: str) -> Prepared:
     t_data = time.perf_counter()
     root = data.write_tree(os.path.join(workdir, "vctk"), pcm, cfg["native_sr"], write_flac)
     t_write = time.perf_counter()
-    testee = SpanTestee(cells.testee_module(cfg).build(cfg, inputs, device, workdir))
-    helper = SSR_Eval_Helper(testee, test_data_root=root, batch_size=cell.workload["batch_size"],
+    inner = cells.testee_module(cfg).build(cfg, inputs, device, workdir)
+    helper = SSR_Eval_Helper(SpanTestee(inner), test_data_root=root, batch_size=cell.workload["batch_size"],
                              device=None if device == "cuda" else device, **traffic["helper"])
+    if hasattr(inner, "bind_stats"):
+        # The testee's own spans and counters go into the engine's tracer.
+        inner.bind_stats(helper.engine.stats)
     t_build = time.perf_counter()
     for _ in range(traffic["warmup_jobs"]):
         helper.evaluate(**traffic["evaluate"])
@@ -269,6 +296,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             """Run one job; -> False when it raised."""
             s0 = {k: stats.seconds.get(k, 0.0) for k in STAGES}
             b0, l0 = stats.counts.get("decode", 0), stft_magnitude_kernel.launches
+            snap = stats_snapshot(stats)
             tj = time.perf_counter()
             try:
                 results.append(helper.evaluate(**traffic["evaluate"]))
@@ -277,7 +305,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
                 return False
             jobs.append(Job(time.perf_counter() - tj, len(files), stats.counts.get("decode", 0) - b0,
                             {k: stats.seconds.get(k, 0.0) - s0[k] for k in STAGES},
-                            stft_magnitude_kernel.launches - l0, traced))
+                            stft_magnitude_kernel.launches - l0, traced, stats_delta(stats_snapshot(stats), snap)))
             return True
 
         t_start = time.perf_counter()
@@ -288,10 +316,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         sync()
         window_s = time.perf_counter() - t_start
         log_fifths(jobs)
-        # A traced run profiles its traced jobs after the window, so the
-        # window's stage times carry no profiler cost.
+        # A traced run, or a cell with an end-to-end metric read from the
+        # device trace, profiles `trace_jobs` more jobs after the window, so
+        # the window's times carry no profiler cost.
         prof = None
-        if trace and not failed_runs:
+        if (trace or profiled_end_to_end(cell)) and not failed_runs:
             helper.testee.traced = True
             add_spans(helper.engine)
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
@@ -306,7 +335,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             trace_window = time.perf_counter() - t_trace
             prof.stop()
         peak = torch.cuda.max_memory_allocated() if cuda else 0
-        summary = tracing.summarize(prof.events(), trace_window) if prof is not None else None
+        summary = None
+        if prof is not None:
+            t_sum = time.perf_counter()
+            events = prof.events()
+            t_events = time.perf_counter()
+            summary = tracing.summarize(events, trace_window)
+            log(f"trace: {len(events)} events read in {t_events - t_sum:.3f} s, "
+                f"summarised in {time.perf_counter() - t_events:.3f} s")
+            del events
         del helper, stats, prof
         prep = prep._replace(helper=None)
         gc.collect()
@@ -349,7 +386,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             "memory_peak_bytes": peak,
         },
     }
-    if summary is not None:
+    if trace and summary is not None:
         line["device"].update(busy_s=summary.busy_s, window_s=summary.window_s)
         ops = sorted(summary.by_name.items(), key=lambda kv: -kv[1])[:10]
         line["breakdown"] = {"device_ops": [list(o) for o in ops], "idle_gaps": [list(g) for g in summary.gaps]}

@@ -58,12 +58,12 @@ def test_a_new_cell_and_metric_are_found_without_edits(tmp_path):
     bench = json.loads(json.dumps(BENCH))
     bench["workloads"].append({"name": "noise_floor.validation_4", "config": "noise_floor",
                                "traffic": "validation_4", "chips": 1, "why": "four files a speaker"})
-    bench["end_to_end"][1]["workloads"].append("noise_floor.validation_4")
+    next(m for m in bench["end_to_end"] if m["name"] == "job_device_ms")["workloads"].append("noise_floor.validation_4")
     bench["per_layer"].append({"name": "jobs_in_window.job", "unit": "jobs", "better": "higher",
-                               "source": "host_clock", "layer": "helper", "moves": "job_p50_ms"})
+                               "source": "host_clock", "layer": "helper", "moves": "job_device_ms"})
     cell = cells.load_cell("noise_floor.validation_4", bench, bench_dir)
     assert cell.traffic["evaluate"]["limit_test_nums"] == 4 and cell.workload["batch_size"] == 4
-    assert [m["name"] for m in cell.end_to_end] == ["job_p50_ms", "setup_s"]
+    assert [m["name"] for m in cell.end_to_end] == ["job_device_ms", "setup_s"]
     assert [m["name"] for m in cell.per_layer] == ["jobs_in_window.job"]
     assert cells.metric_reader("jobs_in_window.job", bench_dir)(type("C", (), {"jobs": [1, 2]})()) == 2
 

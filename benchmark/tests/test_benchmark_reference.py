@@ -66,7 +66,9 @@ def test_port_against_reference_on_cpu(name, one_thread):
     assert line["correct"], line["checks"]
     assert line["failed"] == 0 and line["attempted"] >= 1
     assert list(line)[-1] == "checks"
-    assert {m for m in line["metrics"]} == {m["name"] for m in cells.load_cell(name).end_to_end}
+    # A CPU run reads no device time: a metric from the device trace is left out.
+    assert {m for m in line["metrics"]} == {m["name"] for m in cells.load_cell(name).end_to_end
+                                            if m["source"] != "device_trace"}
 
 
 def test_forbidden_modules_compare_whole_names():

@@ -80,3 +80,19 @@ def test_idle_share_divides_traced_busy_by_untraced_wall():
     assert _common.idle_share(ctx) == pytest.approx(100 * (1 - 0.44 / 1.1))
     ctx.jobs = jobs[2:]
     assert _common.idle_share(ctx) is None
+
+
+def test_testee_stft_counts_each_call_per_spec_on_the_input_signal():
+    """A configuration's `testee_stft` adds its calls, once a spec, over
+    the input-rate samples; without the key the count is as before."""
+    helper = {"input_sr": 44100, "output_sr": 44100, "evaluation_sr": 44100,
+              "setting_fft": {"cutoff_freq": [1000, 2000, 4000]}}
+    families = cells.degradations(helper)
+    base = work.job_work([48000, 96000], 48000, helper, {"testee_flop_per_sample": 1}, families)
+    calls = [{"n_fft": 2048, "hop": 441}, {"n_fft": 1024, "hop": 256}]
+    got = work.job_work([48000, 96000], 48000, helper, {"testee_flop_per_sample": 1, "testee_stft": calls}, families)
+    extra = sum(3 * work.least_seconds(work.stft_call(n, c["n_fft"], c["hop"])) for n in (44100, 88200) for c in calls)
+    assert got["flop"] == base["flop"]
+    assert got["stft_least_s"] == pytest.approx(base["stft_least_s"] + extra, rel=1e-12)
+    noise_floor = cells.load_cell("noise_floor.leaderboard_sweep").config
+    assert "testee_stft" not in noise_floor
