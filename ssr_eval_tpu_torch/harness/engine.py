@@ -79,7 +79,11 @@ batch that runs eagerly or captures.  Counters "samples_real" and
 slot of each packed batch, so their ratio is the share of the batch's work
 that is not padding; "dispatch_graphed" and "dispatch_eager" count the
 batches that replayed and those that ran eagerly, "graph_captures" the
-graphs captured.
+graphs captured.  A testee that defines `bind_stats(stats)` is handed
+`stats` when the engine is built, and opens its own spans and counters
+there (NVSRTestee: "dispatch.testee.<layer>"); counts it takes on the
+device (`stats.add_device`) are settled at the end of every
+`evaluate_files`.
 """
 
 from __future__ import annotations
@@ -214,6 +218,8 @@ class EvalEngine:
             raise ValueError(f"metrics_backend must be 'device' or 'host_float64', got {metrics_backend!r}")
         self.metrics_backend = metrics_backend
         self.stats = StageTimers()
+        if hasattr(testee, "bind_stats"):
+            testee.bind_stats(self.stats)
         self.device_testee = hasattr(testee, "infer_batch")
         self._graphs = {}  # batch key -> _Captured
         self._graph_pool = None
@@ -715,6 +721,7 @@ class EvalEngine:
                 self._drain_one(results, paths, pending.pop(0))
         for job in mp3_pending:
             self._mp3_collect(results, paths, job)
+        self.stats.settle()
 
     def _process_batch(self, item, results, paths, pending, mp3_pending, codec_ex):
         (sr, b), idxs, xb, lens = item

@@ -14,6 +14,12 @@ from_log clips the exponent at +5 (nvsr_unet.py:130-139).
 `.eval()` (the testees' mode) reads every BatchNorm's running statistics;
 `.train()` is flax's `train=True` (models/train.py): batch statistics, and
 running statistics updated as flax updates its `batch_stats`.
+
+On a bucketed batch the testees pass each row's valid frame count
+(`frames`, T_j = n_j // 441 + 1) to the generator and the vocoder, and trim
+each row about its own T_j * 441 samples (`trim_center(..., est_len)`), so
+a row scores as its utterance run alone; without `frames` (training) every
+frame of the buffer is valid.
 """
 
 from __future__ import annotations
@@ -73,9 +79,15 @@ class BNGRU(nn.Module):
             if name.startswith("bias_hh"):
                 p.register_hook(_zero_rz_grad)
 
-    def forward(self, x):
-        # x: [B, T, F] -> [B, T, 2 * hidden]
-        return self.gru(self.bn(x))[0]
+    def forward(self, x, frames=None):
+        # x: [B, T, F] -> [B, T, 2 * hidden]; with `frames` each row runs over
+        # its own frames only (the backward direction starts at its last)
+        # and reads 0 past them.
+        h = self.bn(x)
+        if frames is None:
+            return self.gru(h)[0]
+        packed = nn.utils.rnn.pack_padded_sequence(h, frames.cpu(), batch_first=True, enforce_sorted=False)
+        return nn.utils.rnn.pad_packed_sequence(self.gru(packed)[0], batch_first=True, total_length=x.shape[1])[0]
 
 
 class Generator(nn.Module):
@@ -115,14 +127,15 @@ class Generator(nn.Module):
         else:
             raise ValueError(f"unknown generator {model_name!r}")
 
-    def forward(self, mel_orig):
-        # mel_orig: [B, T, M] linear-scale mel
+    def forward(self, mel_orig, frames=None):
+        # mel_orig: [B, T, M] linear-scale mel; frames: None, or each row's
+        # valid frames [B] (the dnn is frame by frame and needs none)
         log_mel = to_log(mel_orig)
         if self.model_name in ("unet", "unet_small"):
-            out = self.analysis_module(log_mel[:, None])["mel"][:, 0]
+            out = self.analysis_module(log_mel[:, None], frames)["mel"][:, 0]
         elif self.model_name == "bigru":
             h = self.linear_in(self.bn0(log_mel))
-            h = F.relu(self.bngru(h))
+            h = F.relu(self.bngru(h, frames))
             h = F.relu(self.linear_mid(h))
             out = self.linear_out(h)
         else:
@@ -187,12 +200,13 @@ class NVSR(nn.Module):
         sp = stft_magnitude(wav, length, NVSR_STFT, max_frames, eps=1e-8)
         return sp, self.mel(sp)
 
-    def forward(self, mel_orig):
-        return self.generator(mel_orig)
+    def forward(self, mel_orig, frames=None):
+        return self.generator(mel_orig, frames)
 
-    def synthesize(self, log_mel):
-        """Denoised log-mel [B, T, M] -> waveform [B, T*hop]."""
-        return self.vocoder(from_log(log_mel))
+    def synthesize(self, log_mel, frames=None):
+        """Denoised log-mel [B, T, M] -> waveform [B, T*hop]; with `frames`
+        row j is valid over its first frames[j] * hop samples."""
+        return self.vocoder(from_log(log_mel), frames)
 
     def init_all(self, mel_orig):
         """Generator then vocoder: the call that reaches every submodule
@@ -200,14 +214,16 @@ class NVSR(nn.Module):
         return self.synthesize(self.generator(mel_orig)["mel"])
 
 
-def trim_center(est, ref_len):
+def trim_center(est, ref_len, est_len=None):
     """Center-trim each row of est [B, L] to its ref_len [B] (reference
     main.py:22-35): row b keeps est[b, s : s + ref_len[b]] with
-    s = max(L - ref_len[b], 0) // 2, at the front of an L-long row of
-    zeros.  Rows are independent."""
+    s = max(est_len[b] - ref_len[b], 0) // 2, at the front of an L-long row
+    of zeros.  est_len [B] is each row's own output length (None: L, every
+    row valid over the whole buffer).  Rows are independent."""
     B, L = est.shape
     ref_len = ref_len.to(torch.int64)
-    start = torch.clamp(L - ref_len, min=0) // 2
+    est_len = L if est_len is None else est_len.to(torch.int64)
+    start = torch.clamp(est_len - ref_len, min=0) // 2
     idx = start[:, None] + torch.arange(L, device=est.device)[None, :]
     rolled = torch.gather(est, 1, torch.clamp(idx, max=L - 1))
     keep = (idx < L) & (torch.arange(L, device=est.device)[None, :] < ref_len[:, None])

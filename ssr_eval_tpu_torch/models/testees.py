@@ -20,6 +20,20 @@ keep every activation.
 |STFT| kernel launches per `infer_batch`: 1 (`NVSR.pre`, 2048/441) for
 `NVSRTestee`; 2 (+ the cutoff detection at 2048/512) for the two
 post-processing testees.
+
+Each row of a bucketed batch scores as its utterance run alone, as the
+reference runs it: the mel keeps the row's own T_j = n_j // 441 + 1
+frames, the generator and the vocoder take T_j (models/unet.py,
+models/vocoder.py), and the output is trimmed about the row's own
+T_j * 441 samples.
+
+`bind_stats(stats)` (the engine calls it with its `StageTimers`) opens the
+spans "dispatch.testee.mel", ".unet" (".dnn", ".bigru": the generator),
+".vocoder" and ".trim" inside the engine's "dispatch.testee", and counts,
+for the UNet generators, "nvsr_frames_real" (the sum over rows of
+ceil64(T_j), the frames the UNet needs) and "nvsr_frames_slots" (rows x
+the bucket's UNet frames, the frames it computes).  Unbound, no span opens
+and nothing is counted.
 """
 
 from __future__ import annotations
@@ -235,6 +249,23 @@ class NVSRTestee(BatchedTestee):
 
     # -- the device path -----------------------------------------------
 
+    _stats = None
+
+    def bind_stats(self, stats):
+        """Open this testee's spans and counters in `stats` (a StageTimers)."""
+        self._stats = stats
+
+    def _span(self, name):
+        return contextlib.nullcontext() if self._stats is None else self._stats.stage("dispatch.testee." + name)
+
+    def _count_frames(self, frames, total):
+        """The UNet's frames: each row's ceil64(T_j) against the bucket's."""
+        if self._stats is None or self._generator_name() != "unet":
+            return
+        ratio = 2 ** len(self.model.generator.analysis_module.widths)
+        self._stats.add_device("nvsr_frames_real", (-(-frames // ratio) * ratio).sum())
+        self._stats.add("nvsr_frames_slots", frames.shape[0] * -(-total // ratio) * ratio)
+
     def _compute(self, device):
         """The model-compute scope: a bfloat16 autocast when dtype asks."""
         if self.dtype is None:
@@ -242,25 +273,39 @@ class NVSRTestee(BatchedTestee):
         return torch.autocast(device.type, dtype=self.dtype)
 
     def _mel_of(self, x, lengths):
-        """Linear mel [B, T, M] over all max_frames frames of the bucket,
-        unmasked, as the JAX package's `_mel_of`."""
-        return self.model.pre(x, lengths, NVSR_STFT.max_frames(x.shape[1]))[1]
+        """-> (linear mel [B, T, M] over the bucket's max_frames frames, zero
+        past each row's own frames; those frames T_j [B])."""
+        with self._span("mel"):
+            frames = n_frames_for_length(NVSR_STFT, lengths.to(torch.int64))
+            mel = self.model.pre(x, lengths, NVSR_STFT.max_frames(x.shape[1]))[1]
+            keep = torch.arange(mel.shape[1], device=mel.device)[None, :] < frames[:, None]
+            return mel * keep[:, :, None].to(mel.dtype), frames
 
-    def _generate(self, mel, state):
-        with self._compute(mel.device):
-            out = functional_call(self.model.generator, state["generator"], (mel,))["mel"]
-        return out.to(torch.float32)
+    def _generator_name(self):
+        name = self.model.generator.model_name
+        return "unet" if name == "unet_small" else name
 
-    def _vocode(self, log_mel, lengths, state):
-        with self._compute(log_mel.device):
-            wav = functional_call(self.model.vocoder, state["vocoder"], (from_log(log_mel),))
-        return trim_center(wav.to(torch.float32), lengths), lengths
+    def _generate(self, mel, frames, state):
+        with self._span(self._generator_name()):
+            self._count_frames(frames, mel.shape[1])
+            with self._compute(mel.device):
+                out = functional_call(self.model.generator, state["generator"], (mel, frames))["mel"]
+            return out.to(torch.float32)
+
+    def _vocode(self, log_mel, frames, lengths, state):
+        """Vocode, then trim row j about its own frames[j] * hop samples."""
+        with self._span("vocoder"):
+            with self._compute(log_mel.device):
+                wav = functional_call(self.model.vocoder, state["vocoder"], (from_log(log_mel), frames))
+            wav = wav.to(torch.float32)
+        with self._span("trim"):
+            return trim_center(wav, lengths, frames * (wav.shape[1] // log_mel.shape[1])), lengths
 
     def infer_batch(self, x, lengths, state=None):
         state = state if state is not None else self.device_state()
         with torch.inference_mode():
-            mel = self._mel_of(x, lengths)
-            return self._vocode(self._generate(mel, state), lengths, state)
+            mel, frames = self._mel_of(x, lengths)
+            return self._vocode(self._generate(mel, frames, state), frames, lengths, state)
 
 
 def _splice(x, lengths, y, ny):
@@ -286,9 +331,10 @@ class NVSRPaddingPostProcTestee(NVSRTestee):
     (add_segment_to_higher_freq, main.py:138-151), vocode, then splice."""
 
     def _tile_mel(self, mel):
-        """mel [B, T, M] linear mel.  Cutoff over mel bands by cumulative
-        summed energy (get_cutoff_index_v2, main.py:100-102); bands at and
-        above it take the cutoff band's values."""
+        """mel [B, T, M] linear mel, zero past each row's own frames.
+        Cutoff over mel bands by cumulative summed energy
+        (get_cutoff_index_v2, main.py:100-102); bands at and above it take
+        the cutoff band's values."""
         energy = torch.cumsum(torch.sum(mel, dim=1), dim=1)  # [B, M]
         below = energy < energy[:, -1:] * 0.97
         bands = torch.arange(mel.shape[2], device=mel.device)
@@ -299,8 +345,8 @@ class NVSRPaddingPostProcTestee(NVSRTestee):
     def infer_batch(self, x, lengths, state=None):
         state = state if state is not None else self.device_state()
         with torch.inference_mode():
-            tiled = self._tile_mel(self._mel_of(x, lengths))
-            y, ny = self._vocode(to_log(tiled), lengths, state)
+            mel, frames = self._mel_of(x, lengths)
+            y, ny = self._vocode(to_log(self._tile_mel(mel)), frames, lengths, state)
             return _splice(x, lengths, y, ny)
 
 

@@ -13,9 +13,19 @@ Layout is NCHW ([B, C, T, F]) and the attribute names are the reference's
 torch names (`encoder_block1.conv_block1.bn1`, `conv1`, `bn2`, `conv2`,
 `shortcut`, `conv_block7`, `decoder_block{i}.conv1`, `after_conv_block1`,
 `after_conv2`), so a reference state dict loads with `load_state_dict`.
+
 Channel counts are explicit (torch builds modules eagerly): every block is
 told its input width.  Every BatchNorm trains as flax's does
 (`FlaxBatchNorm`), so `.train()` follows the JAX package's `train=True`.
+
+`forward(x, frames)` takes each row's valid frame count (inference on a
+bucketed batch): row j then owns ceil64(frames[j]) / 2^k frames at level k,
+its input is zero from frames[j] on (the reference pads one utterance's
+log-mel with zeros to a multiple of 64), and every 3x3 conv and transposed
+conv sees it zeroed past its own length, as the reference's zero padding at
+the image edge.  Row j's output then equals the utterance run alone; 1x1
+convs and the 2x2 pool read no neighbour past a row's length, since
+ceil64(frames[j]) divides by every level's stride.
 """
 
 from __future__ import annotations
@@ -108,6 +118,23 @@ class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
         super().__init__(num_features, momentum=0.01)
 
 
+def _masked(x, m):
+    """x zeroed where the row mask m ([B, 1, T, 1], or None: no mask) is 0."""
+    return x if m is None else x * m.to(x.dtype)
+
+
+def _level_masks(frames, total, levels, dtype):
+    """Row masks [B, 1, T_k, 1] of each level k = 0..levels: row j valid
+    below ceil(frames[j] / 2^levels) * 2^levels / 2^k frames, of a level-0
+    length `total`."""
+    ratio = 2**levels
+    valid = -(-frames.to(torch.int64) // ratio) * ratio
+    return [
+        (torch.arange(total >> k, device=frames.device)[None, :] < (valid >> k)[:, None]).to(dtype)[:, None, :, None]
+        for k in range(levels + 1)
+    ]
+
+
 class ConvBlockRes(nn.Module):
     """Pre-activation residual block (reference unet.py:289-352):
     BN -> leaky_relu(0.01) -> 3x3 conv -> BN -> leaky_relu -> 3x3 conv, with
@@ -127,12 +154,12 @@ class ConvBlockRes(nn.Module):
         if in_ch != out_ch:
             self.shortcut = nn.Conv2d(in_ch, out_ch, 1)
 
-    def forward(self, x):
+    def forward(self, x, m=None):
         h = F.leaky_relu(self.bn1(x), 0.01)
-        h = self.conv1(h)
+        h = self.conv1(_masked(h, m))
         if not self.fold_bn:
             h = self.bn2(h)
-        h = self.conv2(F.leaky_relu(h, 0.01))
+        h = self.conv2(_masked(F.leaky_relu(h, 0.01), m))
         if hasattr(self, "shortcut"):
             x = self.shortcut(x)
         return x + h
@@ -145,9 +172,9 @@ class EncoderGroup(nn.Module):
         for i in range(blocks):
             setattr(self, f"conv_block{i + 1}", ConvBlockRes(in_ch if i == 0 else out_ch, out_ch, fold_bn))
 
-    def forward(self, x):
+    def forward(self, x, m=None):
         for i in range(self.blocks):
-            x = getattr(self, f"conv_block{i + 1}")(x)
+            x = getattr(self, f"conv_block{i + 1}")(x, m)
         return F.avg_pool2d(x, 2, 2), x
 
 
@@ -163,12 +190,12 @@ class DecoderGroup(nn.Module):
         for i in range(blocks):
             setattr(self, f"conv_block{i + 2}", ConvBlockRes(2 * out_ch if i == 0 else out_ch, out_ch, fold_bn))
 
-    def forward(self, x, skip):
-        h = self.conv1(F.relu(self.bn1(x)))
+    def forward(self, x, skip, m_in=None, m_out=None):
+        h = self.conv1(_masked(F.relu(self.bn1(x)), m_in))
         # prune: (T-1)*2+3 -> 2T rows of time; frequency 2F+1 matches skip
         h = torch.cat([h[:, :, :-1, :], skip], dim=1)
         for i in range(self.blocks):
-            h = getattr(self, f"conv_block{i + 2}")(h)
+            h = getattr(self, f"conv_block{i + 2}")(h, m_out)
         return h
 
 
@@ -206,21 +233,31 @@ class UNetRes(nn.Module):
         self.after_conv_block1 = ConvBlockRes(in_ch, self.widths[0], fold_bn)
         self.after_conv2 = nn.Conv2d(self.widths[0], channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, frames=None):
+        """x [B, C, T, F]; frames: None, or each row's valid frames [B]
+        (see the module's docstring)."""
         origin_len = x.shape[2]
-        ratio = 2 ** len(self.widths)
+        levels = len(self.widths)
+        ratio = 2**levels
         pad_len = -(-origin_len // ratio) * ratio - origin_len
         x = F.pad(x, (0, 0, 0, pad_len))
         h = x[:, :, :, : x.shape[3] - 1]  # drop the last frequency bin (128 -> 127)
+        if frames is None:
+            masks = [None] * (levels + 1)
+        else:
+            masks = _level_masks(frames, h.shape[2], levels, h.dtype)
+            rows = torch.arange(h.shape[2], device=h.device)[None, :] < frames.to(torch.int64)[:, None]
+            h = h * rows.to(h.dtype)[:, None, :, None]
 
         skips = []
-        for i in range(len(self.widths)):
-            h, skip = self._group(getattr(self, f"encoder_block{i + 1}"), h)
+        for i in range(levels):
+            h, skip = self._group(getattr(self, f"encoder_block{i + 1}"), h, masks[i])
             skips.append(skip)
-        h = self.conv_block7(h)
-        for i in range(len(self.widths)):
-            h = self._group(getattr(self, f"decoder_block{i + 1}"), h, skips[-(i + 1)])
-        h = self.after_conv2(self.after_conv_block1(h)).to(torch.float32)
+        h = self.conv_block7(h, masks[levels])
+        for i in range(levels):
+            h = self._group(getattr(self, f"decoder_block{i + 1}"), h, skips[-(i + 1)], masks[levels - i],
+                            masks[levels - i - 1])
+        h = self.after_conv2(self.after_conv_block1(h, masks[0])).to(torch.float32)
 
         h = F.pad(h, (0, 1))  # restore the frequency bin
         return {"mel": h[:, :, :origin_len, :]}

@@ -11,6 +11,12 @@
 
 Module names (`pre`, `up_i`, `res_i_j_d`, `res_i_j_p`, `post` under
 `model`) are the JAX package's, so one name map serves both packages.
+
+Both generators take each row's valid frame count (`frames` [B], inference
+on a bucketed batch): a row valid over L samples at a stage is zeroed past
+L before every zero-padded conv and transposed conv, and `TFGANGenerator`
+takes each resblock's reflect padding at the row's own end, so row j's
+first frames[j] * prod(ratios) samples equal the utterance run alone.
 Tensors are [B, C, L] inside; the public shapes are the JAX package's.
 """
 
@@ -90,6 +96,24 @@ class _SameConv1d(nn.Conv1d):
         return super().forward(F.pad(x, self._pads))
 
 
+def _row_mask(valid, total, dtype):
+    """[B, 1, total] mask of the samples below each row's `valid` [B]."""
+    return (torch.arange(total, device=valid.device)[None, :] < valid[:, None]).to(dtype)[:, None, :]
+
+
+def _reflect_at_row_ends(h, valid, pd):
+    """h: [B, C, pd + L + pd], the reflect padding of a [B, C, L] buffer.
+    Rewrite each row's right padding as the reflection at its own end
+    valid[j] (np.pad mode 'reflect': h[pd + v + i] = h[pd + v - 2 - i]);
+    a row valid over the whole buffer is left as it is."""
+    i = torch.arange(pd, device=h.device)
+    pos = pd + valid[:, None] + i[None, :]
+    src = pd + valid[:, None] - 2 - i[None, :]
+    rows = torch.arange(h.shape[0], device=h.device)[:, None].expand_as(pos)
+    h[rows, :, pos] = h[rows, :, src]
+    return h
+
+
 class TFGANGenerator(nn.Module):
     """Conditioning [B, T, n_mels] -> waveform [B, T * prod(ratios)]."""
 
@@ -107,24 +131,33 @@ class TFGANGenerator(nn.Module):
             ch_in = ch
         self.post = _SameConv1d(ch_in, 1, cfg.post_kernel)
 
-    def forward(self, cond):
+    def forward(self, cond, frames=None):
+        """cond [B, T, n_mels]; frames: None, or each row's valid frames [B]."""
         cfg = self.cfg
         a = cfg.leaky
-        x = self.pre(cond.transpose(1, 2))
+        x = cond.transpose(1, 2)
+        valid = None if frames is None else frames.to(torch.int64)
+        # zeroes each row past `valid` as it stands when called
+        mask = (lambda h: h) if valid is None else (lambda h: h * _row_mask(valid, h.shape[2], h.dtype))
+        x = self.pre(mask(x))
         for i, r in enumerate(cfg.ratios):
             x = F.leaky_relu(x, a)
             # torch ConvTranspose1d(k=2r, stride=r, padding=r//2) trims r//2
             # from both ends of the full output; voicefixer's UpsampleNet then
             # cuts to exactly L*r.  Together: full output [p : p + L*r].
             L, p = x.shape[2], r // 2
-            x = getattr(self, f"up_{i}")(x)[:, :, p : p + L * r]
+            x = getattr(self, f"up_{i}")(mask(x))[:, :, p : p + L * r]
+            if valid is not None:
+                valid = valid * r
             for j, d in enumerate(cfg.res_dilations):
                 pd = d * (cfg.res_kernel // 2)
                 h = F.pad(F.leaky_relu(x, a), (pd, pd), mode="reflect")
+                if valid is not None:
+                    h = _reflect_at_row_ends(h, valid, pd)
                 h = getattr(self, f"res_{i}_{j}_d")(h)
                 h = getattr(self, f"res_{i}_{j}_p")(F.leaky_relu(h, a))
                 x = x + h
-        x = self.post(F.leaky_relu(x, a))
+        x = self.post(mask(F.leaky_relu(x, a)))
         return torch.tanh(x.to(torch.float32))[:, 0]
 
 
@@ -137,8 +170,8 @@ class Vocoder(nn.Module):
         self.cfg = cfg
         self.model = TFGANGenerator(cfg)
 
-    def forward(self, mel):
-        return self.model(normalize_mel(mel, self.cfg))
+    def forward(self, mel, frames=None):
+        return self.model(normalize_mel(mel, self.cfg), frames)
 
 
 class ResBlock1(nn.Module):
@@ -151,10 +184,11 @@ class ResBlock1(nn.Module):
             setattr(self, f"conv1_{i}", _SameConv1d(channels, channels, kernel, dilation=d))
             setattr(self, f"conv2_{i}", _SameConv1d(channels, channels, kernel))
 
-    def forward(self, x):
+    def forward(self, x, mask=lambda h: h):
+        """mask: zeroes each row past its valid length before a conv."""
         for i in range(len(self.dilations)):
-            h = getattr(self, f"conv1_{i}")(F.leaky_relu(x, 0.1))
-            x = x + getattr(self, f"conv2_{i}")(F.leaky_relu(h, 0.1))
+            h = getattr(self, f"conv1_{i}")(mask(F.leaky_relu(x, 0.1)))
+            x = x + getattr(self, f"conv2_{i}")(mask(F.leaky_relu(h, 0.1)))
         return x
 
 
@@ -183,17 +217,22 @@ class HiFiGANVocoder(nn.Module):
                 setattr(self, f"res_{i}_{j}", ResBlock1(ch, rk, rd))
         self.conv_post = _SameConv1d(ch, 1, 7)
 
-    def forward(self, mel):
-        h = self.conv_pre(mel.transpose(1, 2))
+    def forward(self, mel, frames=None):
+        valid = None if frames is None else frames.to(torch.int64)
+        # zeroes each row past `valid` as it stands when called
+        mask = (lambda h: h) if valid is None else (lambda h: h * _row_mask(valid, h.shape[2], h.dtype))
+        h = self.conv_pre(mask(mel.transpose(1, 2)))
         for i, (r, k) in enumerate(zip(self.upsample_rates, self.upsample_kernels)):
             L = h.shape[2]
             off = _conv_transpose_same_offset(k, r)
-            h = getattr(self, f"up_{i}")(F.leaky_relu(h, 0.1))[:, :, off : off + L * r]
+            h = getattr(self, f"up_{i}")(mask(F.leaky_relu(h, 0.1)))[:, :, off : off + L * r]
+            if valid is not None:
+                valid = valid * r
             # Multi-receptive-field fusion: mean of parallel resblocks.
             acc = None
             for j in range(self.n_res):
-                b = getattr(self, f"res_{i}_{j}")(h)
+                b = getattr(self, f"res_{i}_{j}")(h, mask)
                 acc = b if acc is None else acc + b
             h = acc / self.n_res
-        h = self.conv_post(F.leaky_relu(h, 0.1))
+        h = self.conv_post(mask(F.leaky_relu(h, 0.1)))
         return torch.tanh(h.to(torch.float32))[:, 0]

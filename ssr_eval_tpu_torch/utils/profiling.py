@@ -7,9 +7,12 @@
   the span lies on the profiler's timeline beside the device's work.  A
   child span carries its parent in a dotted name (``dispatch.degrade``
   inside ``dispatch``).  ``add(name, n)`` counts work at the same
-  boundaries (``counters``).  ``summary()`` groups each child under its
-  parent, with utterances per second and the decoders that ran
-  ("native_batch", "python_pool").
+  boundaries (``counters``); ``add_device(name, t)`` counts a 0-d integer
+  tensor that the card computes, without waiting for it: the value is
+  copied to the host in stream order and added by ``settle()`` (the engine
+  settles at the end of every ``evaluate_files``, when the card is done).
+  ``summary()`` groups each child under its parent, with utterances per
+  second and the decoders that ran ("native_batch", "python_pool").
 - `device_trace`: a `torch.profiler` trace (CPU activities, and CUDA ones
   where a card is present) written into a directory as a Chrome/TensorBoard
   trace; enabled with ``EvalEngine(..., profile_dir=...)`` or
@@ -64,6 +67,7 @@ class StageTimers:
         self.counters = defaultdict(int)
         self.utterances = 0
         self.decoders = set()
+        self._pending = []  # add_device counts not yet read: (name, pinned host copy, event)
         self._t0 = time.perf_counter()
 
     def stage(self, name: str) -> _Span:
@@ -71,6 +75,25 @@ class StageTimers:
 
     def add(self, name: str, n: int):
         self.counters[name] += n
+
+    def add_device(self, name: str, n: torch.Tensor):
+        """Count the 0-d integer tensor n; a CPU tensor counts at once."""
+        if n.device.type != "cuda":
+            self.add(name, int(n))
+            return
+        host = torch.empty((), dtype=n.dtype, pin_memory=True)
+        host.copy_(n, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(n.device))
+        self._pending.append((name, host, done))
+
+    def settle(self):
+        """Add every pending `add_device` count, waiting for the card to
+        have written each."""
+        for name, host, done in self._pending:
+            done.synchronize()
+            self.add(name, int(host))
+        self._pending = []
 
     def add_utterances(self, n: int):
         self.utterances += n

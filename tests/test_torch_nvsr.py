@@ -30,7 +30,7 @@ from ssr_eval_tpu.models import unet as j_unet
 from ssr_eval_tpu.models.convert import conv_kernel, torch_state_dict_to_flax
 from ssr_eval_tpu.models.vocoder import TFGANConfig as JTFGANConfig
 from ssr_eval_tpu_torch.degrade.plan import expand_settings
-from ssr_eval_tpu_torch.dsp.spectral import stft_magnitude
+from ssr_eval_tpu_torch.dsp.spectral import n_frames_for_length, stft_magnitude
 from ssr_eval_tpu_torch.harness.engine import EvalEngine
 from ssr_eval_tpu_torch.harness.fixtures import speechlike
 from ssr_eval_tpu_torch.io.audio import write_wav
@@ -268,18 +268,38 @@ def _port_testee(cls, v, **kw):
     return _install(cls, _small_nvsr("dnn", v), **kw)
 
 
+def _jax_alone(jt, x, n, state):
+    """The JAX testee on each utterance alone, in a [1, n_j] buffer (as the
+    reference runs it): [(row j's output, its length)].  On a padded batch
+    the JAX package's testees see the bucket's frames and trim about the
+    bucket's length, so its batch is not the expectation."""
+    f = jax.jit(jt.infer_batch)
+    out = []
+    for j, k in enumerate(n):
+        y, ny = f(jnp.asarray(x[j : j + 1, :k]), jnp.asarray([k]), state)
+        out.append((np.asarray(y)[0], int(np.asarray(ny)[0])))
+    return out
+
+
+def _close_rows(y, ny, want):
+    """Each row of the port's padded batch against its utterance alone,
+    over every sample, and zero past its length."""
+    for j, (w, k) in enumerate(want):
+        assert int(ny[j]) == k
+        _close(y[j, :k], w[:k])
+        assert not y[j, k:].any()
+
+
 @pytest.mark.parametrize("name", ["NVSRTestee", "NVSRPostProcTestee", "NVSRPaddingPostProcTestee"])
 def test_testee_infer_batch_matches_jax(small_dnn, name):
     jm, v = small_dnn
     jt = getattr(j_testees, name)(model_name="dnn", params=v)
     jt.model = jm
     x, n = _buffers(9)
-    y_j, n_j = jax.jit(jt.infer_batch)(jnp.asarray(x), jnp.asarray(n), jt.variables)
+    want = _jax_alone(jt, x, n, jt.variables)
     pt = _port_testee(getattr(testees, name), v)
     y, ny = pt.infer_batch(torch.from_numpy(x), torch.from_numpy(n), pt.device_state())
-    np.testing.assert_array_equal(ny.numpy(), np.asarray(n_j))
-    _close(y, y_j)
-    assert not y[0, n[0]:].any() and not y[1, n[1]:].any()
+    _close_rows(y, ny, want)
 
 
 def test_bigru_testee_matches_jax():
@@ -289,24 +309,28 @@ def test_bigru_testee_matches_jax():
     jt = j_testees.NVSRTestee(model_name="bigru", params=v)
     jt.model = jm
     x, n = _buffers(11)
-    y_j, _ = jax.jit(jt.infer_batch)(jnp.asarray(x), jnp.asarray(n), jt.variables)
+    want = _jax_alone(jt, x, n, jt.variables)
     pt = _install(testees.NVSRTestee, _small_nvsr("bigru", v))
-    y, _ = pt.infer_batch(torch.from_numpy(x), torch.from_numpy(n))
-    _close(y, y_j)
+    y, ny = pt.infer_batch(torch.from_numpy(x), torch.from_numpy(n))
+    _close_rows(y, ny, want)
 
 
 def test_small_unet_testee_runs():
     """The UNet generator through the testee at small widths equals the
-    model's own pre -> generator -> synthesize -> trim_center, exactly
-    (the JAX package cannot build its UNet NVSR at small widths; the UNet
-    itself is held against JAX in tests/test_torch_models.py)."""
+    model's own pre -> generator -> synthesize -> trim_center given each
+    row's frames, exactly (the JAX package cannot build its UNet NVSR at
+    small widths; the UNet itself is held against JAX in
+    tests/test_torch_models.py, each padded row against its utterance alone
+    in tests/test_torch_nvsr_lengths.py)."""
     base = _small_nvsr("unet", seed=3)
     x, n = _buffers(12)
     xt, nt = torch.from_numpy(x), torch.from_numpy(n)
     y, _ = _install(testees.NVSRTestee, base).infer_batch(xt, nt)
     with torch.no_grad():
         _, mel = base.eval().pre(xt, nt, nvsr.NVSR_STFT.max_frames(x.shape[1]))
-        want = nvsr.trim_center(base.synthesize(base(mel)["mel"]), nt)
+        frames = n_frames_for_length(nvsr.NVSR_STFT, nt)
+        mel = mel * (torch.arange(mel.shape[1])[None, :] < frames[:, None])[:, :, None]
+        want = nvsr.trim_center(base.synthesize(base(mel, frames)["mel"], frames), nt, frames * 441)
     assert y.shape == (2, (1 + x.shape[1] // 441) * 441)
     assert torch.isfinite(y).all() and torch.equal(y, want)
 
@@ -326,10 +350,10 @@ def test_param_dtype_matches_jax(small_dnn):
     jt = j_testees.NVSRTestee(model_name="dnn", params=v, param_dtype=jnp.bfloat16)
     jt.model = jm
     x, n = _buffers(16)
-    y_j, _ = jax.jit(jt.infer_batch)(jnp.asarray(x), jnp.asarray(n), jt.device_state())
+    want = _jax_alone(jt, x, n, jt.device_state())
     pt = _port_testee(testees.NVSRTestee, v, param_dtype=torch.bfloat16)
-    y, _ = pt.infer_batch(torch.from_numpy(x), torch.from_numpy(n))
-    _close(y, y_j)
+    y, ny = pt.infer_batch(torch.from_numpy(x), torch.from_numpy(n))
+    _close_rows(y, ny, want)
     y32, _ = _port_testee(testees.NVSRTestee, v).infer_batch(torch.from_numpy(x), torch.from_numpy(n))
     assert not torch.equal(y, y32)
 
@@ -459,7 +483,11 @@ def test_trained_vocoder_passes_and_random_trips_the_check(tmp_path):
 @pytest.fixture(scope="module")
 def trained_sweep(tmp_path_factory):
     """The trained NVSRPostProcTestee's fft sweep through the port's helper
-    and the JAX engine, and the identity testee's through the port's."""
+    and the JAX engine, and the identity testee's through the port's.  The
+    JAX engine runs every file in a buffer of its own length (its
+    `bucket_length` patched to the identity), as the reference runs each
+    utterance: on a padded bucket the JAX package's testees see the
+    bucket's frames and trim about its length."""
     import ssr_eval_tpu_torch
     from ssr_eval_tpu.degrade.plan import expand_settings as j_expand
     from ssr_eval_tpu.harness.engine import EvalEngine as JEngine
@@ -480,7 +508,9 @@ def trained_sweep(tmp_path_factory):
     jt.load_generator_checkpoint(GEN)
     assert jt.load_vocoder_checkpoint(VOC, check=False) == []
     specs = j_expand(setting_fft={"cutoff_freq": [2 * c for c in TRAINED_CUTOFFS]}, sr=44100)
-    want = JEngine(specs, 44100, 44100, 44100, jt, batch_size=2).evaluate_files(paths)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("ssr_eval_tpu.harness.engine.bucket_length", lambda n: n)
+        want = JEngine(specs, 44100, 44100, 44100, jt, batch_size=2).evaluate_files(paths)
 
     cwd = os.getcwd()
     os.chdir(tmp_path_factory.mktemp("trained_small_run"))
