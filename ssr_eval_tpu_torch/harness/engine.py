@@ -22,8 +22,8 @@ independent of the others', so the order changes no result.
 On a CUDA card, with a device testee scoring on the device and nothing
 that reads a batch's device buffers after the next batch (no saved audio,
 no `host_float64` metrics, no mp3 specs), `_pre` and `_post` are CUDA
-graphs, captured once per batch key (native rate, bucket, sample type; the
-post phase also per testee output shape) right after that key's first
+graphs, captured once per batch key (native rate, rows, bucket, sample type;
+the post phase also per testee output shape) right after that key's first
 batch has run eagerly, and replayed for every later batch: the host batch
 is copied into the graphs' static inputs, `_pre` is replayed, the testee
 runs eagerly on its outputs, its outputs are copied into `_post`'s inputs
@@ -58,8 +58,12 @@ or replays CUDA graphs.  As the JAX engine does, it records each distinct
 batch program's key, argument shapes and call count (`_cost_args`,
 `_cost_calls`), which `utils.flops.engine_program_costs` reads.
 
-Batches are padded to a fixed size with copies of their first row; padding
-rows are dropped at collation.  Every per-utterance computation is
+A batch holds exactly its real rows: a bucket's remainder goes out with
+fewer rows than `batch_size`, and everything downstream takes the row count
+from the batch's shape.  The one exception is measured: on the card a short
+batch's testee call runs filled to `batch_size` with copies of its first row
+where, at that shape's first call, the filled call took less time than the
+call over its rows (`_infer_rows`).  Every per-utterance computation is
 independent of the other rows of its batch, so a file scores the same alone
 or inside any batch.
 
@@ -75,9 +79,12 @@ second with the copy of the testee's outputs into its inputs) and "drain";
 degradation and the mp3 testee call are timed after the dispatch stage).
 "dispatch.target", "dispatch.degrade" and "dispatch.score" open only on a
 batch that runs eagerly or captures.  Counters "samples_real" and
-"samples_slots" give the native-rate samples of the real rows and of every
-slot of each packed batch, so their ratio is the share of the batch's work
-that is not padding; "dispatch_graphed" and "dispatch_eager" count the
+"samples_slots" give the native-rate samples of the rows and of every slot
+of each packed batch (rows x bucket), so their ratio is the share of the
+batch's work that is not length padding; "rows_dispatched" counts the rows,
+so over the batches it says how far short batches fall below `batch_size`,
+and "testee_rows_filled" the copies a filled testee call adds;
+"dispatch_graphed" and "dispatch_eager" count the
 batches that replayed and those that ran eagerly, "graph_captures" the
 graphs captured.  A testee that defines `bind_stats(stats)` is handed
 `stats` when the engine is built, and opens its own spans and counters
@@ -88,6 +95,7 @@ device (`stats.add_device`) are settled at the end of every
 
 from __future__ import annotations
 
+import gc
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
@@ -157,6 +165,12 @@ class _Captured(NamedTuple):
     post: dict
 
 
+def _filled(x, n, rows):
+    """x [r, L] and n [r] with copies of their first row up to `rows` rows."""
+    pad = rows - x.shape[0]
+    return torch.cat([x, x[:1].expand(pad, -1)]), torch.cat([n, n[:1].expand(pad)])
+
+
 def _signature(outs):
     return tuple((tuple(y.shape), y.dtype, tuple(ny.shape), ny.dtype) for y, ny in outs)
 
@@ -224,10 +238,11 @@ class EvalEngine:
         self._graphs = {}  # batch key -> _Captured
         self._graph_pool = None
         self._capture_stream = None
-        self._host_ring = []  # pinned [S, 4, B] metric slots of graphed batches
+        self._host_ring = [None] * (MAX_PENDING + 1)  # pinned metric slots of graphed batches
         self._staging = [None] * (MAX_PENDING + 1)  # pinned input slots, one per result slot
         self._ring_at = 0
         self._weights = {}  # plan key -> device copy of its Wd
+        self._fill = {}  # short batch shape -> whether its testee call runs filled (`_infer_rows`)
         self._state = (None, None)  # (testee's state, its device copy)
         # Each distinct batch program dispatched: key -> (fn, argument
         # shapes and dtypes), and key -> calls (utils.flops.engine_program_costs).
@@ -317,8 +332,54 @@ class EvalEngine:
         outs = []
         for d in pre["degraded"]:
             with self.stats.stage("dispatch.testee"):
-                outs.append(self.testee.infer_batch(d, pre["n_in"], state))
+                outs.append(self._infer_rows(d, pre["n_in"], state))
         return outs
+
+    def _infer_rows(self, x, n, state):
+        """One testee call over a batch's rows -> (y, ny) with as many rows.
+
+        On the card a short batch's call runs at its own rows or, where that
+        was measured slower, filled to `batch_size` with copies of its first
+        row and cut back after: a library may choose a far slower algorithm
+        for some row counts (on an H100, cuDNN's heuristics take an FFT
+        convolution of 33,024 launches for one NVSR UNet layer at 5 and 7
+        rows, 4-5x the time of 8 rows).  Each shape is measured once, at its
+        first call."""
+        rows = x.shape[0]
+        if rows >= self.batch_size or self.device.type != "cuda":
+            return self.testee.infer_batch(x, n, state)
+        key = (tuple(x.shape), x.dtype)
+        if key not in self._fill:
+            out = self.testee.infer_batch(x, n, state)
+            self._fill[key] = self._fill_is_cheaper(x, n, state)
+            return out
+        if not self._fill[key]:
+            return self.testee.infer_batch(x, n, state)
+        self.stats.add("testee_rows_filled", self.batch_size - rows)
+        y, ny = self.testee.infer_batch(*_filled(x, n, self.batch_size), state)
+        return y[:rows], ny[:rows]
+
+    def _fill_is_cheaper(self, x, n, state):
+        """Whether the testee's call over x's rows filled to `batch_size`
+        takes less time on the card than over x's rows alone: one timed call
+        of each, after a first filled call (the library's own set-up for
+        that shape).  Off the count of |STFT| launches, as a capture's are."""
+        launches = stft_magnitude_kernel.launches
+        xf, nf = _filled(x, n, self.batch_size)
+        self.testee.infer_batch(xf, nf, state)
+
+        def ms(a, b):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.current_stream(self.device).synchronize()  # both calls start on an idle card
+            start.record()
+            self.testee.infer_batch(a, b, state)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        cheaper = ms(xf, nf) < ms(x, n)
+        stft_magnitude_kernel.launches = launches
+        return cheaper
 
     def _post(self, pre, outs):
         """The fused chain's last phase: each spec's output resample and
@@ -369,7 +430,10 @@ class EvalEngine:
         (cuBLAS workspaces) exists before the capture; the |STFT| launches
         of that run and of the capture are taken back off the count, which
         counts kernel executions.  The cuFFT plans the graph runs stay in
-        torch's plan cache (4096 plans; the sweep uses a few dozen)."""
+        torch's plan cache (4096 plans; the sweep uses a few dozen).  The
+        cyclic garbage collector stays off during the capture: a collection
+        there can free another engine's graph, whose destruction is an
+        operation a capture forbids and which ends it."""
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -381,8 +445,14 @@ class EvalEngine:
             torch.cuda.current_stream(self.device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
             before = stft_magnitude_kernel.launches
-            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
-                out = fn()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                    out = fn()
+            finally:
+                if collecting:
+                    gc.enable()
         captured = stft_magnitude_kernel.launches - before
         stft_magnitude_kernel.launches = launches
         self.stats.add("graph_captures", 1)
@@ -401,7 +471,7 @@ class EvalEngine:
         first with a new testee output signature, runs eagerly and then
         captures.  -> (`_fused_batch`'s arguments, metrics [S, 4, B] on the
         device, whether both phases replayed)."""
-        key = (sr, b, xb.dtype.str)
+        key = (sr, xb.shape[0], b, xb.dtype.str)
         cap = self._graphs.get(key)
         with self.stats.stage("dispatch.prep"):
             if cap is None:
@@ -458,15 +528,15 @@ class EvalEngine:
         return out
 
     def _copy_out(self, mstack):
-        """Copy a batch's metrics into the next pinned host slot, in stream
+        """Copy a batch's metrics into the next pinned host slot (a view of
+        one buffer, grown as needed: batches differ in rows), in stream
         order -> (slot, event recorded after the copy).  The ring has
         MAX_PENDING + 1 slots, so a slot comes round again only after the
         batch that held it was drained."""
-        if not self._host_ring:
-            self._host_ring = [
-                torch.empty(mstack.shape, dtype=mstack.dtype, pin_memory=True) for _ in range(MAX_PENDING + 1)
-            ]
-        slot = self._host_ring[self._ring_at]
+        buf = self._host_ring[self._ring_at]
+        if buf is None or buf.numel() < mstack.nbytes:
+            buf = self._host_ring[self._ring_at] = torch.empty(mstack.nbytes, dtype=torch.uint8, pin_memory=True)
+        slot = buf[: mstack.nbytes].view(mstack.dtype).view(mstack.shape)
         self._ring_at = (self._ring_at + 1) % len(self._host_ring)
         slot.copy_(mstack, non_blocking=True)
         done = torch.cuda.Event()
@@ -489,29 +559,27 @@ class EvalEngine:
         m = spectral_metrics(ye, ne, gt, n_gt, cfg, mf)
         return torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy(), (ye, ne)
 
-    def _host_infer_and_score(self, results, paths, idxs, spec, d_h, n_in_h, gt, n_gt, n_real):
+    def _host_infer_and_score(self, results, paths, idxs, spec, d_h, n_in_h, gt, n_gt):
         """Bridge a host testee: per-utterance infer, then batched scoring."""
         outs, extras = [], []
         with self.stats.stage("host_infer"):
-            for j in range(n_real):
+            for j in range(d_h.shape[0]):
                 ret = self.testee.infer(d_h[j, : n_in_h[j]])
                 y, add = ret if isinstance(ret, tuple) else (ret, {})
                 outs.append(np.asarray(y, dtype=np.float32))
                 extras.append(add)
         lout = bucket_length(max(len(y) for y in outs))
-        yb = np.zeros((d_h.shape[0], lout), np.float32)
-        ny = np.zeros(d_h.shape[0], np.int64)
+        yb = np.zeros((len(outs), lout), np.float32)
+        ny = np.zeros(len(outs), np.int64)
         for j, y in enumerate(outs):
             yb[j, : len(y)] = y
             ny[j] = len(y)
-        yb[n_real:] = yb[0]
-        ny[n_real:] = ny[0]
         marr, audio = self._score_batch(
             torch.from_numpy(yb).to(self.device), torch.from_numpy(ny).to(self.device), gt, n_gt
         )
-        self._collate(results, paths, idxs, spec, marr, audio, n_real, extras)
+        self._collate(results, paths, idxs, spec, marr, audio, extras)
 
-    def _mp3_submit(self, ex, paths, idxs, spec, x_in_h, n_in_h, n_real):
+    def _mp3_submit(self, ex, paths, idxs, spec, x_in_h, n_in_h):
         """Queue one codec round trip per utterance on the codec pool;
         -> futures.  LAME releases the GIL (the CLI backends run in
         subprocesses), so codec work proceeds while the main thread decodes
@@ -525,36 +593,35 @@ class EvalEngine:
             x = x_in_h[j, : n_in_h[j]]
             return mp3_degrade(p, x, spec.sr, spec.kbps, cache_path=cache, device=self.device)
 
-        return [ex.submit(one, j) for j in range(n_real)]
+        return [ex.submit(one, j) for j in range(x_in_h.shape[0])]
 
     def _mp3_collect(self, results, paths, job):
         """Drain side: wait for a batch's codec futures, then score."""
-        idxs, spec, futs, x_shape, n_in_h, gt, n_gt, n_real = job
+        idxs, spec, futs, x_shape, n_in_h, gt, n_gt = job
         with self.stats.stage("codec_wait"):
             outs = [f.result() for f in futs]
         d_h = np.zeros(x_shape, np.float32)
         for j, d in enumerate(outs):
             d_h[j, : len(d)] = d
-        d_h[n_real:] = d_h[0]
         if not self.device_testee:
-            self._host_infer_and_score(results, paths, idxs, spec, d_h, n_in_h, gt, n_gt, n_real)
+            self._host_infer_and_score(results, paths, idxs, spec, d_h, n_in_h, gt, n_gt)
             return
         # A device testee scores the whole codec-degraded batch in one
         # infer -> resample -> metrics chain.
         d = torch.from_numpy(d_h).to(self.device)
         nd = torch.from_numpy(n_in_h).to(self.device)
         with self.stats.stage("dispatch.testee"):
-            y, ny = self.testee.infer_batch(d, nd, self._testee_state())
+            y, ny = self._infer_rows(d, nd, self._testee_state())
         marr, audio = self._score_batch(y, ny, gt, n_gt)
-        self._collate(results, paths, idxs, spec, marr, audio, n_real)
+        self._collate(results, paths, idxs, spec, marr, audio)
 
-    def _host64_metrics(self, ye_h, ne_h, gt_h, ng_h, n_real):
+    def _host64_metrics(self, ye_h, ne_h, gt_h, ng_h):
         """Float64 NumPy metrics over device-produced estimate and
         ground-truth waveforms (PARITY.md deviation 4) -> [4, B]."""
         from ssr_eval_tpu_torch.metrics.host_reference import evaluate_f64
 
         vals = np.zeros((len(METRIC_KEYS), ye_h.shape[0]), np.float64)
-        for j in range(n_real):
+        for j in range(ye_h.shape[0]):
             m = evaluate_f64(ye_h[j, : ne_h[j]], gt_h[j, : ng_h[j]], self.evaluation_sr)
             vals[:, j] = [m[k] for k in METRIC_KEYS]
         return vals
@@ -587,22 +654,23 @@ class EvalEngine:
         return cls._mono_row(x), int(sr)
 
     def _pack_batch(self, sr, b, rows):
+        """-> ((sr, bucket), file indices, samples [rows, bucket], lengths):
+        the batch holds exactly its rows, however few."""
+        n = len(rows)
         self.stats.add("samples_real", sum(len(x) for _, x in rows))
-        self.stats.add("samples_slots", self.batch_size * b)
-        chunk = list(rows)
-        n_real = len(chunk)
-        while len(chunk) < self.batch_size:
-            chunk.append(chunk[0])  # pad rows, dropped at collation
-        lens = np.zeros(self.batch_size, np.int64)
-        if all(c[1].dtype == np.int16 for c in chunk):
+        self.stats.add("samples_slots", n * b)
+        self.stats.add("rows_dispatched", n)
+        idxs = [i for i, _ in rows]
+        lens = np.zeros(n, np.int64)
+        if all(x.dtype == np.int16 for _, x in rows):
             # int16 host->device copy (half the bytes); rescaled on device.
-            xb = np.zeros((self.batch_size, b), np.int16)
-            for j, (_, x) in enumerate(chunk):
+            xb = np.zeros((n, b), np.int16)
+            for j, (_, x) in enumerate(rows):
                 xb[j, : len(x)] = x
                 lens[j] = len(x)
-            return (sr, b), [c[0] for c in chunk[:n_real]], xb, lens
-        xb = np.zeros((self.batch_size, b), np.float32)
-        for j, (_, x) in enumerate(chunk):
+            return (sr, b), idxs, xb, lens
+        xb = np.zeros((n, b), np.float32)
+        for j, (_, x) in enumerate(rows):
             xf = x.astype(np.float32) / 32768.0 if x.dtype == np.int16 else x
             xb[j, : len(xf)] = xf
             lens[j] = len(xf)
@@ -610,7 +678,7 @@ class EvalEngine:
         q = np.round(xb * 32768.0)
         if np.all(np.abs(q) <= 32767) and np.array_equal(q / 32768.0, xb):
             xb = q.astype(np.int16)
-        return (sr, b), [c[0] for c in chunk[:n_real]], xb, lens
+        return (sr, b), idxs, xb, lens
 
     def _accumulate_batches(self, items):
         """(idx, mono_audio, native_sr) iterable -> packed batches.  Full
@@ -725,7 +793,6 @@ class EvalEngine:
 
     def _process_batch(self, item, results, paths, pending, mp3_pending, codec_ex):
         (sr, b), idxs, xb, lens = item
-        n_real = len(idxs)
         if not self.specs:
             return
         graphs = self._graphs_engage()
@@ -733,7 +800,7 @@ class EvalEngine:
             if graphs:
                 with torch.cuda.device(self.device):
                     args, mstack, graphed = self._dispatch_graphed(sr, b, xb, lens)
-                    pending.append((idxs, self._copy_out(mstack), None, n_real, None))
+                    pending.append((idxs, self._copy_out(mstack), None, None))
             else:
                 graphed = False
                 with self.stats.stage("dispatch.prep"):
@@ -748,17 +815,17 @@ class EvalEngine:
                 x_in_h = x_in.cpu().numpy()
                 n_in_h = n_in.cpu().numpy()
             for spec in self.mp3_specs:
-                futs = self._mp3_submit(codec_ex, paths, idxs, spec, x_in_h, n_in_h, n_real)
-                mp3_pending.append((idxs, spec, futs, x_in_h.shape, n_in_h, gt, n_gt, n_real))
+                futs = self._mp3_submit(codec_ex, paths, idxs, spec, x_in_h, n_in_h)
+                mp3_pending.append((idxs, spec, futs, x_in_h.shape, n_in_h, gt, n_gt))
             if self.device_testee and self.device_specs:
-                self._record_cost(("fused", tuple(self.groups), sr, b), self._fused_batch, args)
+                self._record_cost(("fused", tuple(self.groups), sr, len(idxs), b), self._fused_batch, args)
                 if not graphs:
                     mstack, audio = self._fused_batch(*args)
                     gt_pair = (gt, n_gt) if self.metrics_backend == "host_float64" else None
-                    pending.append((idxs, (mstack, None), audio, n_real, gt_pair))
+                    pending.append((idxs, (mstack, None), audio, gt_pair))
         if not self.device_testee:
             for spec, d in self._degraded(x_in, n_in):
-                self._host_infer_and_score(results, paths, idxs, spec, d.cpu().numpy(), n_in_h, gt, n_gt, n_real)
+                self._host_infer_and_score(results, paths, idxs, spec, d.cpu().numpy(), n_in_h, gt, n_gt)
         with self.stats.stage("drain"):
             while len(pending) > MAX_PENDING:
                 self._drain_one(results, paths, pending.pop(0))
@@ -769,7 +836,7 @@ class EvalEngine:
         """Bring one batch's metrics to the host and collate them: a graphed
         engine's batch waits on its own copy's event, any other brings its
         metrics over."""
-        idxs, (mstack, done), audio, n_real, gt_pair = item
+        idxs, (mstack, done), audio, gt_pair = item
         if done is not None:
             done.synchronize()
             marr = mstack.numpy()  # [S, 4, B], its pinned slot
@@ -781,18 +848,18 @@ class EvalEngine:
             m = marr[si]
             if gt_pair is not None:
                 ye_h, ne_h = audio[si][0].cpu().numpy(), audio[si][1].cpu().numpy()
-                m = self._host64_metrics(ye_h, ne_h, gt_h, ng_h, n_real)
-            self._collate(results, paths, idxs, spec, m, audio[si] if audio is not None else None, n_real)
+                m = self._host64_metrics(ye_h, ne_h, gt_h, ng_h)
+            self._collate(results, paths, idxs, spec, m, audio[si] if audio is not None else None)
 
-    def _collate(self, results, paths, idxs, spec, marr, audio, n_real, extras=None):
+    def _collate(self, results, paths, idxs, spec, marr, audio, extras=None):
         """marr: [4, B] metrics in METRIC_KEYS order; audio: (ye, ne) at the
         evaluation rate, written when save_processed_result is set."""
         save = self.save_processed_result and audio is not None
         if save:
             ye_h = audio[0].cpu().numpy()
             ne_h = audio[1].cpu().numpy()
-        for j in range(n_real):
-            p = paths[idxs[j]]
+        for j, idx in enumerate(idxs):
+            p = paths[idx]
             entry = {k: float(marr[ki, j]) for ki, k in enumerate(METRIC_KEYS)}
             if extras:
                 entry.update(extras[j])

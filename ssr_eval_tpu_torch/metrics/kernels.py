@@ -51,15 +51,20 @@ def _lsd(est_sp, tgt_sp, fmask):
     return torch.where(fmask > 0, per_frame, torch.zeros_like(per_frame)).sum(dim=-1) / n
 
 
+def _sum_tf(x, keepdim=False):
+    """Sum of [B, T, F] over frames and bins, bins first: a row's sum takes
+    one order whatever its batch's rows (on the CPU one reduction over both
+    dims of a lone row splits the row across threads)."""
+    s = x.sum(dim=-1).sum(dim=-1)
+    return s[..., None, None] if keepdim else s
+
+
 def _sispec(est_sp, tgt_sp):
     """Scale-invariant spectral SNR; inputs pre-masked (invalid rows = 0)."""
-    dims = (-2, -1)
-    pow_norm = torch.sum(est_sp * tgt_sp, dim=dims, keepdim=True)
-    target = pow_norm * tgt_sp / (torch.sum(tgt_sp**2, dim=dims, keepdim=True) + EPS)
+    pow_norm = _sum_tf(est_sp * tgt_sp, keepdim=True)
+    target = pow_norm * tgt_sp / (_sum_tf(tgt_sp**2, keepdim=True) + EPS)
     noise = est_sp - target
-    return 10.0 * torch.log10(
-        torch.sum(target**2, dim=dims) / (torch.sum(noise**2, dim=dims) + EPS) + EPS
-    )
+    return 10.0 * torch.log10(_sum_tf(target**2) / (_sum_tf(noise**2) + EPS) + EPS)
 
 
 def _box_valid_means(a, win):
@@ -101,7 +106,7 @@ def _ssim(est_sp, tgt_sp, n_frames, tgt_moments=None):
     t = torch.arange(S.shape[1], device=S.device)[None, :]
     mask = (t < (n_frames - win + 1)[:, None]).to(S.dtype)  # [B, T']
     count = torch.clamp(mask.sum(dim=-1) * S.shape[2], min=1.0)
-    return (S * mask[:, :, None]).sum(dim=(-2, -1)) / count
+    return _sum_tf(S * mask[:, :, None]) / count
 
 
 def spectral_metrics_with_target(

@@ -373,7 +373,8 @@ def test_cuda_backward_row_alone_equals_in_batch(card, n_fft, hop):
 
 
 # The engine's CUDA graphs.  Files at 48 kHz: three share one bucket (with
-# batch 2, two batches of one key, the second part-full), two more buckets.
+# batch 2, a batch of two rows and a remainder of one: two keys), two more
+# buckets of one row each.
 GRAPH_DURS = (0.5, 0.51, 0.505, 0.8, 1.1)
 GRAPH_SETTINGS = {
     "fft": {"setting_fft": {"cutoff_freq": [4000, 8000, 16000]}},
@@ -414,8 +415,8 @@ def _job(eng, paths):
 @pytest.mark.cuda
 @pytest.mark.parametrize("family,eval_sr", [("fft", 44100), ("fft", 48000), ("mixed", 44100)])
 def test_graphed_sweep_is_bit_identical_to_eager(card, tmp_path, family, eval_sr):
-    """A first job captures two graphs a batch key; a second captures none
-    and replays every batch.  Both score every file bit for bit as the
+    """A first job captures two graphs a batch key (rows, bucket: four keys,
+    one a batch); a second captures none and replays every batch.  Both score every file bit for bit as the
     eager chain does, and count the eager chain's |STFT| launches."""
     paths = _graph_files(tmp_path, GRAPH_DURS)
     want, eager, eager_launches = _job(_graph_engine(card, family, eval_sr, graphs=False), paths)
@@ -424,7 +425,7 @@ def test_graphed_sweep_is_bit_identical_to_eager(card, tmp_path, family, eval_sr
     eng = _graph_engine(card, family, eval_sr)
     first, c1, l1 = _job(eng, paths)
     second, c2, l2 = _job(eng, paths)
-    assert c1 == {"dispatch_graphed": 1, "dispatch_eager": 3, "graph_captures": 6}
+    assert c1 == {"dispatch_graphed": 0, "dispatch_eager": 4, "graph_captures": 8}
     assert c2 == {"dispatch_graphed": batches, "dispatch_eager": 0, "graph_captures": 0}
     assert l1 == l2 == eager_launches
     assert first == want and second == want

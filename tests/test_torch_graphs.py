@@ -4,6 +4,9 @@ eager chain there), the engine decides where graphs engage from what it
 observes, and the chain's phase order (every degradation, then every
 testee call, then every score) changes no result."""
 
+import contextlib
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -92,3 +95,55 @@ def test_phase_order_changes_no_result(paths):
         alone = _engine([spec]).evaluate_files(paths)
         for p in paths:
             assert alone[p][spec.key] == together[p][spec.key], (p, spec.key)
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+class _FakeCapture:
+    """torch.cuda.graph's context: records whether the collector ran."""
+
+    seen = []
+
+    def __init__(self, graph, pool=None, stream=None):
+        pass
+
+    def __enter__(self):
+        self.seen.append(("enter", gc.isenabled()))
+
+    def __exit__(self, *exc):
+        self.seen.append(("exit", gc.isenabled()))
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_holds_the_collector_off(monkeypatch, fails):
+    """A collection inside a capture can free another engine's graph, which
+    ends the capture: the collector is off while the graph captures (not
+    during the eager run before it), and on again after, raise or not."""
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph", _FakeCapture)
+    _FakeCapture.seen = []
+    eng = _engine(expand_settings(sr=SR, **SETTINGS))
+    during = []
+
+    def fn():
+        during.append(gc.isenabled())
+        if fails and len(during) == 2:
+            raise RuntimeError("capture failed")
+        return torch.zeros(1)
+
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            eng._capture(fn)
+    else:
+        eng._capture(fn)
+    assert during == [True, False]
+    assert _FakeCapture.seen == [("enter", False), ("exit", False)]
+    assert gc.isenabled()

@@ -131,12 +131,12 @@ def test_engine_binds_the_testees_spans_and_counters(tmp_path):
     counts = eng.stats.counts
     for name in ("mel", "unet", "vocoder", "trim"):
         assert counts[f"dispatch.testee.{name}"] == counts["dispatch.testee"] == 2 * 2, name
-    # one batch per file (different buckets), 2 rows each (the pad row a
-    # copy of the first), per spec; the UNet's 4 frames-deep levels round to 4
+    # one batch per file (different buckets) of its one row, per spec; the
+    # UNet's 4 frames-deep levels round to 4
     frames = [n // 441 + 1 for n in (6000, 33000)]
     slots = [1 + bucket_length(n) // 441 for n in (6000, 33000)]
-    assert eng.stats.counters["nvsr_frames_real"] == 2 * sum(2 * -(-f // 4) * 4 for f in frames)
-    assert eng.stats.counters["nvsr_frames_slots"] == 2 * sum(2 * -(-s // 4) * 4 for s in slots)
+    assert eng.stats.counters["nvsr_frames_real"] == 2 * sum(1 * -(-f // 4) * 4 for f in frames)
+    assert eng.stats.counters["nvsr_frames_slots"] == 2 * sum(1 * -(-s // 4) * 4 for s in slots)
 
 
 @pytest.mark.parametrize("name", ["tfgan", "hifigan"])

@@ -22,12 +22,15 @@ from ssr_eval_tpu_torch.utils.profiling import SPAN_PREFIX, StageTimers
 
 SR = 16000
 # Batch 2: 4500 and 5000 share the 5120 bucket and fill a batch; 5100 (5120)
-# and 9000 (10240) are part-full remainders.  3 batches.
+# and 9000 (10240) are remainders of one row each.  3 batches, 4 rows.
 LENGTHS = [4500, 5000, 5100, 9000]
 BATCH = 2
 BATCHES = 3
 SAMPLES_REAL = sum(LENGTHS)
-SAMPLES_SLOTS = BATCH * 5120 + BATCH * 5120 + BATCH * 10240
+SAMPLES_SLOTS = 2 * 5120 + 1 * 5120 + 1 * 10240  # rows x bucket
+ROWS = len(LENGTHS)
+COUNTERS = {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS, "rows_dispatched": ROWS,
+            "dispatch_eager": BATCHES}
 CUTOFFS = [4000, 8000]  # two fft specs, one family
 SPECS = len(CUTOFFS)
 LAYERS = ("decode", "decode.native", "dispatch", "dispatch.prep", "dispatch.target", "dispatch.degrade",
@@ -87,19 +90,19 @@ def test_no_profiler_no_record_function(speaker_dir, monkeypatch):
         assert eng.stats.seconds[name] > 0 and eng.stats.counts[name] > 0, name
     assert eng.stats.counts["decode"] == BATCHES
     assert eng.stats.counts["dispatch.testee"] == BATCHES * SPECS
-    assert set(eng.stats.counters) == {"samples_real", "samples_slots", "dispatch_eager"}
+    assert set(eng.stats.counters) == set(COUNTERS)
 
 
 @pytest.mark.parametrize("native", ["1", "0"])
 def test_padding_counters_are_a_hand_count(speaker_dir, monkeypatch, native):
-    """samples_real: the real rows' lengths; samples_slots: batch size x
-    bucket, every batch, full or not, whichever decoder ran."""
+    """samples_real: the rows' lengths; samples_slots: rows x bucket, every
+    batch, full or not; rows_dispatched: the rows, one a file; whichever
+    decoder ran."""
     monkeypatch.setenv("SSR_EVAL_TPU_NATIVE_BATCH", native)
     eng = _engine()
     eng.evaluate_files(_paths(speaker_dir))
     assert eng.stats.decoders == ({"native_batch"} if native == "1" else {"python_pool"})
-    assert dict(eng.stats.counters) == {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS,
-                                        "dispatch_eager": BATCHES}
+    assert dict(eng.stats.counters) == COUNTERS
     assert eng.stats.counts["decode"] == BATCHES
 
 
@@ -148,7 +151,7 @@ def test_summary_groups_children_under_their_stage(speaker_dir):
     assert set(s["stages"]["dispatch"]["children"]) == {"prep", "target", "degrade", "testee", "score"}
     assert s["stages"]["decode"]["children"]["native"]["calls"] == 1
     assert s["stages"]["dispatch"]["calls"] == BATCHES
-    assert s["counters"] == {"samples_real": SAMPLES_REAL, "samples_slots": SAMPLES_SLOTS, "dispatch_eager": BATCHES}
+    assert s["counters"] == COUNTERS
     t = StageTimers()
     with t.stage("a.b"):
         pass
