@@ -4,14 +4,14 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure raises and the script exits non-zero):
-  build      nvcc builds every kernel under ssr_eval_tpu_torch/csrc/ into
-             the checkout's ssr_eval_tpu_torch/_build/ (one nvcc per source,
-             in parallel), and g++ the native IO library (csrc/ssrio.cpp)
-             beside them.
+  build      nvcc builds the kernel source csrc/stft_magnitude.cu into the
+             checkout's ssr_eval_tpu_torch/_build/ while g++ builds the
+             native IO library (csrc/ssrio.cpp) beside it.
   kernel     the |STFT| kernel on the card at the main path's shapes
              (2048/441, 2229/480 and 743/160, 16 buffers -> [16, 744,
              n_bins]; 2048/512 -> [16, 641, 1025], NVSR's post-processing
-             cutoff detection): max|kernel - plain| <= 1e-4 of max|plain| and
+             cutoff detection) and at the A/B shape [8, 266240] 2048/441
+             -> [8, 604, 1025]: max|kernel - plain| <= 1e-4 of max|plain| and
              max|kernel - float64 rfft| <= 2e-6 of its max (the plain
              version's float64 error printed beside it); kernel, plain and
              torch.stft (a yardstick the port never calls) timed with CUDA
@@ -20,8 +20,10 @@ Phases (any failure raises and the script exits non-zero):
              card: 16 speech-like 6 s utterances at 44.1 kHz, 7 cutoffs of
              1-16 kHz, batch 16, a broadband-noise testee.  The kernel's
              launch count must grow by 8 per batch (1 target + 7 estimates).
-             Per-pair metrics must agree with the same sweep on the CPU and,
-             for two utterances, with the float64 NumPy oracle.
+             Per-pair metrics must agree with the same sweep on the CPU, and
+             with the card's sweep under metrics_backend="host_float64",
+             within CARD_VS_CPU and, for two utterances, with the float64
+             NumPy oracle.
   flac       the sweep's 16 utterances re-encoded as 16-bit FLAC with the
              native encoder (a VCTK-style p000/ layout; each decodes to the
              WAV's int16 samples) and the headline sweep run on them: the
@@ -31,24 +33,6 @@ Phases (any failure raises and the script exits non-zero):
              utt/s and the decode stage beside the WAV sweep's; the native
              decode_batch against the pure-Python flac_py on those files and
              on the synthetic VCTK set.
-  bench      the port's benchmark program at its full size in a child
-             process (python -m ssr_eval_tpu_torch.bench --detail ...; 192 x
-             6 s utterances, 7 cutoffs, batch 16, best of 5; the float64
-             baseline on this host; accuracy; NVSR bf16 and fp32; the
-             IIR/subsampling matrix; mp3 where a codec exists; the kernel
-             A/B at [8, 266240]).  Its last line (the keys, under 2 KB) and
-             its detail file are checked: the well-conditioned sweep's LSD
-             within 1e-3 of the float64 oracle, the device metrics within
-             CARD_VS_CPU of metrics_backend="host_float64", NVSR bf16 vs
-             fp32 mean LSD within NVSR_BF16's LSD limit, the A/B kernel
-             within 1e-4 of max of its plain version, the |STFT| launches of
-             the timed passes exact (headline: 8 per batch, 12 batches per
-             pass), no section reporting an error, and the repository's
-             BENCH_DETAIL.json and BASELINE_F64.json byte-identical before
-             and after.  Then the headline's 192 utterances here, from WAV
-             and from the same PCM as 16-bit FLAC in a VCTK layout (the
-             native encoder): best of 5 passes, the stage seconds, and one
-             profiled pass each for the device's idle share.
   install    the port as a user installs it: pip builds its wheel from a
              copy of ssr_eval_tpu_torch/ (tests/port_install.py) and
              installs it into a read-only directory; a child process (this
@@ -186,9 +170,10 @@ N_UTTS = 16
 BATCH = 16
 CUTOFFS = [1000, 2000, 4000, 6000, 8000, 12000, 16000]
 NOISE_SEED = 777
-# Card vs the CPU run of the same sweep, per (file, spec) pair: about 5x
-# the first measured maxima on an H100 (LSD 5.0e-5, log-SiSpec 4.4e-4,
-# SiSpec 7.6e-6 dB, SSIM 1.2e-7; PERF.md).
+# Card vs the CPU run of the same sweep, and the card's metrics vs
+# metrics_backend="host_float64", per (file, spec) pair: about 5x the first
+# measured maxima on an H100 (LSD 5.0e-5, log-SiSpec 4.4e-4, SiSpec 7.6e-6
+# dB, SSIM 1.2e-7; PERF.md).
 CARD_VS_CPU = {"lsd": 2.5e-4, "log_sispec": 2e-3, "sispec": 5e-5, "ssim": 1e-6}
 # The README smoke run's golden values and tolerances
 # (tests/test_golden_synthetic.py).
@@ -373,14 +358,57 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def make_noise():
+    """The well-conditioned testee's broadband floor: 1e-3 N(0, 1), 2^17
+    samples, seed NOISE_SEED."""
+    return (1e-3 * np.random.default_rng(NOISE_SEED).standard_normal(1 << 17)).astype(np.float32)
+
+
 def noisy_testee(device):
-    """The benchmark's well-conditioned testee (a fixed 1e-3 broadband floor
-    added to its input) with its noise on `device` -> (testee, noise)."""
-    from ssr_eval_tpu_torch.bench import NoisyTestee, make_noise
-    from ssr_eval_tpu_torch.harness.testee import state_from_numpy
+    """The well-conditioned testee with its noise on `device` -> (testee,
+    noise).  It adds a fixed noise (make_noise, its device state) to its
+    input, so estimated spectra sit far above any float32 rounding floor
+    and deltas against the float64 oracle measure the pipeline (PARITY.md
+    deviation 4)."""
+    import torch
+
+    from ssr_eval_tpu_torch.harness.testee import BatchedTestee, state_from_numpy
+
+    class NoisyTestee(BatchedTestee):
+        def __init__(self, noise):
+            self.noise = noise
+
+        def device_state(self):
+            return self.noise
+
+        def infer_batch(self, x, lengths, state=None):
+            ar = torch.arange(x.shape[1], device=x.device)
+            mask = (ar[None, :] < lengths[:, None]).to(torch.float32)
+            return x.to(torch.float32) + state[ar % state.shape[0]][None, :] * mask, lengths
 
     noise = make_noise()
     return NoisyTestee(state_from_numpy(noise, device)), noise
+
+
+def f64_pipeline_one(path, cutoffs, noise=None):
+    """The reference fft sweep for one utterance at SR in float64: {key: the
+    four metrics}; `noise` is added to every estimate as the noisy testee
+    adds it."""
+    from ssr_eval_tpu_torch.io.audio import decode_audio
+    from ssr_eval_tpu_torch.metrics.host_reference import istft_np, spectral_metrics_np, stft_np
+
+    x = decode_audio(path)[0].astype(np.float64)
+    hop, n_fft = int(SR / 100), int(2048 / (44100 / SR))
+    tgt_sp = np.abs(stft_np(x, n_fft, hop)).T
+    out = {}
+    for c in cutoffs:
+        Z = stft_np(x, 2048, 441)
+        Z[int(1025 * (c / int(SR / 2))) :, :] = 0.0
+        est = istft_np(Z, 2048, 441, length=len(x))
+        if noise is not None:
+            est = est + noise.astype(np.float64)[np.arange(len(est)) % noise.shape[0]]
+        out[f"proc_fft_{2 * c}_{SR}"] = spectral_metrics_np(np.abs(stft_np(est, n_fft, hop)).T, tgt_sp)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -389,22 +417,21 @@ def noisy_testee(device):
 
 
 def build_both():
-    """nvcc for every CUDA source and g++ for csrc/ssrio.cpp, all at once ->
-    ({stem: kernel library}, nvcc seconds, IO library, g++ seconds)."""
+    """nvcc for csrc/stft_magnitude.cu and g++ for csrc/ssrio.cpp at once ->
+    (kernel library, nvcc seconds, IO library, g++ seconds)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ssr_eval_tpu_torch.dsp import _build
-    from ssr_eval_tpu_torch.io import build_native
+    from ssr_eval_tpu_torch._native_build import CSRC, build
 
-    def timed(fn):
+    def timed(name):
         t = time.perf_counter()
-        return fn(), time.perf_counter() - t
+        return build(CSRC / name), time.perf_counter() - t
 
     with ThreadPoolExecutor(2) as ex:
-        native = ex.submit(timed, build_native.build)
-        paths, cuda_s = timed(_build.build_all)
+        native = ex.submit(timed, "ssrio.cpp")
+        kernel_lib, cuda_s = timed("stft_magnitude.cu")
         lib, native_s = native.result()
-    return paths, cuda_s, lib, native_s
+    return kernel_lib, cuda_s, lib, native_s
 
 
 def _ptxas_lines(lib):
@@ -413,11 +440,10 @@ def _ptxas_lines(lib):
 
 
 def phase_build():
-    paths, cuda_s, lib, native_s = build_both()
-    log(f"[build] {len(paths)} kernel source(s) built in {cuda_s:.2f} s; native IO library {lib.name} "
-        f"built by g++ in {native_s:.2f} s")
-    for p in paths.values():
-        log(f"[build] {p.name}: {_ptxas_lines(p)}")
+    kernel_lib, cuda_s, lib, native_s = build_both()
+    log(f"[build] kernel library {kernel_lib.name} built by nvcc in {cuda_s:.2f} s; native IO library "
+        f"{lib.name} built by g++ in {native_s:.2f} s")
+    log(f"[build] {kernel_lib.name}: {_ptxas_lines(kernel_lib)}")
 
 
 def stft_bound(B, ext_len, mf, n_fft):
@@ -446,10 +472,12 @@ def phase_kernel():
     # resampled to the 48 kHz (356,660) and 16 kHz (118,886) evaluation
     # rates; all give 744 frames.
     # 2048/512 is the NVSR post-processing cutoff detection on the bucket.
-    for n_fft, hop, body in ((2048, 441, 327680), (2229, 480, 356660), (743, 160, 118886), (2048, 512, 327680)):
+    # [8, 266240] is the root bench.py's kernel A/B shape (604 frames).
+    for rows, n_fft, hop, body in ((BATCH, 2048, 441, 327680), (BATCH, 2229, 480, 356660),
+                                   (BATCH, 743, 160, 118886), (BATCH, 2048, 512, 327680), (8, 2048, 441, 266240)):
         ext_len = body + 2 * (n_fft // 2)
         mf = 1 + (ext_len - n_fft) // hop
-        ext = 0.1 * torch.randn(BATCH, ext_len, generator=g, device=dev)
+        ext = 0.1 * torch.randn(rows, ext_len, generator=g, device=dev)
         win = window_tensor(n_fft, n_fft, dev)
         got = stft_magnitude_kernel(ext, n_fft, hop, mf, win)
         torch.cuda.synchronize()
@@ -461,7 +489,7 @@ def phase_kernel():
         rel64 = (got.double() - ref).abs().max().item() / peak
         plain_rel64 = (want.double() - ref).abs().max().item() / peak
         del ref
-        if not (got.shape == want.shape == (BATCH, mf, n_fft // 2 + 1)) or not rel <= 1e-4 or not rel64 <= 2e-6:
+        if not (got.shape == want.shape == (rows, mf, n_fft // 2 + 1)) or not rel <= 1e-4 or not rel64 <= 2e-6:
             raise AssertionError(
                 f"stft kernel {n_fft}/{hop}: shape {tuple(got.shape)}, vs plain {rel:.3e} (limit 1e-4), "
                 f"vs float64 {rel64:.3e} (limit 2e-6)"
@@ -471,10 +499,10 @@ def phase_kernel():
         library_ms = cuda_ms(
             lambda: torch.stft(ext, n_fft, hop, window=win, center=False, return_complex=True).abs()
         )
-        bound_ms, bound_by, nbytes, flops = stft_bound(BATCH, ext_len, mf, n_fft)
+        bound_ms, bound_by, nbytes, flops = stft_bound(rows, ext_len, mf, n_fft)
         plan = _fft_plan(n_fft)
         s = dict(
-            n_fft=n_fft, hop=hop, shape=[BATCH, mf, n_fft // 2 + 1], ext_len=ext_len,
+            n_fft=n_fft, hop=hop, shape=[rows, mf, n_fft // 2 + 1], ext_len=ext_len,
             path=plan.kind, fft_len=plan.fft_len,
             max_abs_err=max_abs, max_rel_err=rel, max_rel_err_f64=rel64, plain_max_rel_err_f64=plain_rel64,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -510,7 +538,6 @@ def phase_sweep(work):
     import torch
 
     import ssr_eval_tpu_torch
-    from ssr_eval_tpu_torch.bench import f64_pipeline_one
     from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
 
     root = os.path.join(work, "sweep_data")
@@ -559,6 +586,12 @@ def phase_sweep(work):
     log(f"[sweep] CPU run {cpu_s:.2f} s; max |card - CPU| per pair: {json.dumps(delta)}")
     if not finite or any(delta[k] > CARD_VS_CPU[k] for k in METRICS):
         raise AssertionError(f"card vs CPU parity failed: {delta} (limits {CARD_VS_CPU}, finite={finite})")
+
+    h64 = ssr_eval_tpu_torch.SSR_Eval_Helper(testee, metrics_backend="host_float64", **kw).evaluate(verbose=False)
+    delta, finite = _stem_delta(h64, card)
+    log(f"[sweep] max |device metrics - metrics_backend=\"host_float64\"| per pair on the card: {json.dumps(delta)}")
+    if not finite or any(delta[k] > CARD_VS_CPU[k] for k in METRICS):
+        raise AssertionError(f"device vs host_float64 metrics failed: {delta} (limits {CARD_VS_CPU}, finite={finite})")
 
     oracle = {k: 0.0 for k in METRICS}
     for i in range(2):
@@ -679,129 +712,6 @@ def phase_flac(work, sweep):
     return {"launches": launches, "root": root, "kw": kw, "card": card, "s_per_batch": best / n_batches}
 
 
-# bench: the repository files the JAX package's bench.py writes, which the
-# port's benchmark must leave alone; the child's time limit.
-BENCH_GUARDED = ("BENCH_DETAIL.json", "BASELINE_F64.json")
-BENCH_TIMEOUT = 600
-BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "detail", "detail_file"}
-
-
-def _digest(path):
-    import hashlib
-
-    with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
-
-
-def _errors(tree, where=""):
-    """Every path in a JSON tree that holds an "error" entry."""
-    if not isinstance(tree, dict):
-        return []
-    here = [where or "."] if "error" in tree else []
-    return here + [e for k, v in tree.items() for e in _errors(v, f"{where}.{k}")]
-
-
-def run_bench(work):
-    """python -m ssr_eval_tpu_torch.bench in a child process from the
-    checkout -> (its last line, its detail, seconds)."""
-    out = os.path.join(work, "bench.json")
-    env = {k: v for k, v in os.environ.items() if not k.startswith("SSR_BENCH_")}
-    t = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "ssr_eval_tpu_torch.bench", "--detail", out], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=BENCH_TIMEOUT)
-    seconds = time.perf_counter() - t
-    for ln in r.stderr.splitlines():
-        if ln.startswith("[bench]"):
-            log(ln)
-    if r.returncode != 0:
-        raise AssertionError(f"the benchmark exited {r.returncode}:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
-    last = r.stdout.strip().splitlines()[-1]
-    line = json.loads(last)
-    if (set(line) != BENCH_LINE_KEYS or len(last.encode()) >= 2048 or line["unit"] != "utt/s/chip"
-            or line["metric"] != "utterances/sec/chip (VCTK fft-sweep eval)" or line["detail_file"] != out):
-        raise AssertionError(f"the benchmark's last line ({len(last.encode())} bytes): {last[:3000]}")
-    with open(out) as f:
-        return line, json.load(f), seconds
-
-
-def phase_bench(work):
-    """The port's benchmark at full size (run_bench), its checks, and the
-    headline's utterances timed from WAV and from FLAC in this process."""
-    import torch
-
-    from ssr_eval_tpu_torch import bench
-    from ssr_eval_tpu_torch.degrade.plan import expand_settings
-    from ssr_eval_tpu_torch.harness.testee import BatchedTestee
-    from ssr_eval_tpu_torch.io import flac_native
-    from ssr_eval_tpu_torch.io.audio import read_wav_i16
-
-    sz = bench.FULL
-    guarded = {name: _digest(os.path.join(ROOT, name)) for name in BENCH_GUARDED}
-    line, d, bench_s = run_bench(work)
-    log(f"[bench] last line ({len(json.dumps(line).encode())} bytes): {json.dumps(line)}")
-    nv, ab, mx = d["nvsr"], d["kernel_ab"], d["iir_subsampling_matrix"]
-    log(f"[bench] {bench_s:.1f} s in the child; headline passes {d['pass_times_s']} s, stages of the best "
-        f"{json.dumps(d['stage_seconds_best_pass'])}, drain split {json.dumps(d['headline_drain_split'])[:400]}; "
-        f"baseline {d['baseline_utt_per_s']} utt/s on {json.dumps(d['baseline_host'])}")
-    log(f"[bench] accuracy: well-conditioned vs float64 {json.dumps(d['max_abs_delta_wellconditioned'])}; device vs "
-        f"host_float64 {json.dumps(d['max_abs_delta_device_vs_host_float64'])}; identity dLSD (floor) "
-        f"{json.dumps(d['per_key_dLSD_identity_floor_dominated'])}")
-    log(f"[bench] nvsr {json.dumps(nv)}")
-    log(f"[bench] matrix {json.dumps(mx)}; mp3 {json.dumps(d['mp3'])}")
-    log(f"[bench] kernel A/B {json.dumps(ab)}")
-    batches = -(-sz.n_utts // sz.batch)
-    want = {
-        "headline": sz.passes * batches * (1 + len(sz.cutoffs)),
-        "nvsr_bf16": 2 * -(-sz.n_nvsr // sz.nvsr_batch_bf16) * (1 + 2 * len(sz.cutoffs)),
-        "nvsr_f32": 2 * -(-sz.n_nvsr // sz.nvsr_batch_f32) * (1 + 2 * len(sz.cutoffs)),
-        "matrix": 2 * -(-(sz.n_utts // 2) // sz.batch) * (1 + mx["n_specs"]),
-    }
-    got = {"headline": d["headline_stft_launches"], "nvsr_bf16": nv.get("stft_launches_bf16"),
-           "nvsr_f32": nv.get("stft_launches_f32"), "matrix": mx["stft_launches"]}
-    changed = [name for name, h in guarded.items() if _digest(os.path.join(ROOT, name)) != h]
-    failed = {
-        "errors": _errors(d),
-        "launches": {k: (got[k], v) for k, v in want.items() if got[k] != v},
-        "wellconditioned_lsd": d["max_abs_delta_wellconditioned"]["lsd"] > 1e-3,
-        "host_float64": {k: v for k, v in d["max_abs_delta_device_vs_host_float64"].items() if not v <= CARD_VS_CPU[k]},
-        "nvsr_bf16": not nv.get("max_abs_dLSD_bf16_vs_f32", math.inf) <= NVSR_BF16["lsd"],
-        "kernel_ab": not ab.get("max_abs_err_of_max", math.inf) <= 1e-4,
-        "changed": changed,
-        "not_the_card": d["backend"] != "cuda" or d["n_chips"] != 1 or d["card"] != card_line(),
-    }
-    failed = {k: v for k, v in failed.items() if v}
-    if failed:
-        raise AssertionError(f"the benchmark's checks failed: {failed}")
-
-    # The FLAC question: the headline's utterances from WAV and from FLAC.
-    wav_dir, flac_dir = (os.path.join(work, n, "p000") for n in ("bench_wav", "bench_flac"))
-    os.makedirs(wav_dir)
-    os.makedirs(flac_dir)
-    wav = bench.make_dataset(wav_dir, sz.n_utts, sz.utt_seconds)
-    flac = []
-    for p in wav:
-        pcm, sr = read_wav_i16(p)
-        q = os.path.join(flac_dir, os.path.splitext(os.path.basename(p))[0] + ".flac")
-        flac_native.encode(q, pcm.astype(np.float32) / np.float32(32768.0), sr)
-        if not np.array_equal(flac_native.decode_i16(q)[0], pcm):
-            raise AssertionError(f"{q}: the FLAC does not decode to the WAV's int16 samples")
-        flac.append(q)
-    specs = expand_settings(setting_fft={"cutoff_freq": [2 * c for c in sz.cutoffs]}, sr=SR)
-    for name, paths in (("WAV", wav), ("FLAC", flac)):
-        eng = bench.engine(specs, BatchedTestee(), sz.batch, torch.device("cuda"))
-        r = bench.timed_passes(eng, paths, sz.passes)
-        busy = profile_call(lambda: eng.evaluate_files(paths), f"bench-{name.lower()}-profile")
-        idle = None if busy is None else 1 - busy / (r.best_s * 1e3)
-        log(f"[bench] {name}: {sz.n_utts} x {sz.utt_seconds} s, {len(specs)} cutoffs, batch {sz.batch}: passes "
-            f"{r.runs} s, best {r.best_s:.4f} s/pass ({sz.n_utts / r.best_s:.2f} utt/s), stages of the best "
-            f"{json.dumps(r.stages)}, decoders {sorted(eng.stats.decoders)}, idle share {idle} (device busy of "
-            f"one profiled pass over the best unprofiled pass); |STFT| launches {r.launches}")
-        if eng.stats.decoders != {"native_batch"} or r.launches != want["headline"]:
-            raise AssertionError(f"{name} headline: decoders {eng.stats.decoders}, {r.launches} launches")
-        del eng
-    return {"launches": d["headline_stft_launches"], "kernel_ab": ab, "seconds": bench_s}
-
-
 def install_child(kw_json, out):
     """The FLAC headline sweep from an installed port: phase_install runs
     this script with `-P`, the install alone on PYTHONPATH, a fresh HOME and
@@ -813,12 +723,11 @@ def install_child(kw_json, out):
     import torch
 
     import ssr_eval_tpu_torch
-    from ssr_eval_tpu_torch.dsp import _build
+    from ssr_eval_tpu_torch.dsp import stft_kernel
     from ssr_eval_tpu_torch.dsp.stft_kernel import stft_magnitude_kernel
     from ssr_eval_tpu_torch.io.audio import flac_codec
 
-    paths, cuda_s, io_lib, native_s = build_both()
-    kernel_lib = paths["stft_magnitude"]
+    kernel_lib, cuda_s, io_lib, native_s = build_both()
     codec = flac_codec()
     testee, _ = noisy_testee(torch.device("cuda"))
     helper = ssr_eval_tpu_torch.SSR_Eval_Helper(testee, **json.loads(kw_json))
@@ -830,7 +739,7 @@ def install_child(kw_json, out):
     with open(out, "w") as f:
         json.dump({
             "file": ssr_eval_tpu_torch.__file__, "nvcc_s": cuda_s, "gxx_s": native_s,
-            "kernel_lib": str(kernel_lib), "kernel_loaded": _build._libs["stft_magnitude"]._name,
+            "kernel_lib": str(kernel_lib), "kernel_loaded": stft_kernel._library()._name,
             "ptxas": _ptxas_lines(kernel_lib), "io_lib": str(io_lib), "codec": codec,
             "decoders": sorted(helper.engine.stats.decoders), "launches": launches, "times": times,
             "decode_s": decode_s, "card": card,
@@ -2297,8 +2206,7 @@ def main():
         try:
             sweep = phase_sweep(work)
             flac = phase_flac(work, sweep)
-            bench = phase_bench(work)
-            launches = {"sweep": sweep["launches"], "flac": flac["launches"], "bench": bench["launches"]}
+            launches = {"sweep": sweep["launches"], "flac": flac["launches"]}
             launches["install"] = phase_install(work, flac)
             phase_smoke(work)
             phase_invariance(work)
@@ -2332,7 +2240,6 @@ def main():
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shapes": shapes,
-        "bench_ab": bench["kernel_ab"],
     }
     bhead = bwd_shapes[0]  # the vocoder loss's shape
     backward = {

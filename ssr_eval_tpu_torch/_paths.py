@@ -4,8 +4,8 @@
 when the package directory is writable (a checkout, or an install the user
 may write to), else the user cache
 ``${XDG_CACHE_HOME:-~/.cache}/ssr_eval_tpu_torch/<version>/`` (an install in
-a read-only site-packages).  It creates nothing; the builders make the
-directory when they first write there.
+a read-only site-packages).  It creates nothing; the builder (`_native_build.py`)
+makes the directory when it first writes there.
 """
 
 from __future__ import annotations

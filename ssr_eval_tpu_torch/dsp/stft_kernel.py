@@ -122,11 +122,17 @@ def _tables(n_fft: int, device: torch.device) -> tuple[int, torch.Tensor, torch.
 
 
 @functools.lru_cache(maxsize=1)
-def _launcher():
-    """The kernel's C entry point (builds csrc/ on first use)."""
-    from ssr_eval_tpu_torch.dsp import _build
+def _library() -> ctypes.CDLL:
+    """The loaded kernel library (builds csrc/stft_magnitude.cu on first use)."""
+    from ssr_eval_tpu_torch._native_build import CSRC, build
 
-    fn = _build.library("stft_magnitude").ssr_stft_magnitude
+    return ctypes.CDLL(str(build(CSRC / "stft_magnitude.cu")))
+
+
+@functools.lru_cache(maxsize=1)
+def _launcher():
+    """The kernel's C entry point."""
+    fn = _library().ssr_stft_magnitude
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -217,10 +223,8 @@ def stft_magnitude_backward_plain(
 
 @functools.lru_cache(maxsize=1)
 def _backward_launcher():
-    """The backward's C entry point (builds csrc/ on first use)."""
-    from ssr_eval_tpu_torch.dsp import _build
-
-    fn = _build.library("stft_magnitude").ssr_stft_magnitude_backward
+    """The backward's C entry point."""
+    fn = _library().ssr_stft_magnitude_backward
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -229,9 +233,7 @@ def _backward_launcher():
 def _backward_plan(batch: int, ext_len: int, n_fft: int, hop: int, max_frames: int) -> int:
     """S, the frames per segment that the backward kernel takes for this
     shape on the current CUDA device (chip_smoke.py reports it)."""
-    from ssr_eval_tpu_torch.dsp import _build
-
-    fn = _build.library("stft_magnitude").ssr_stft_magnitude_backward_plan
+    fn = _library().ssr_stft_magnitude_backward_plan
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     s = ctypes.c_int(0)

@@ -2,7 +2,7 @@
 
 - a pure-NumPy RIFF/WAVE reader/writer (PCM 8/16/24/32 and float32/64),
 - FLAC decode/encode through the native library (the port's `csrc/ssrio.cpp`,
-  built by io/build_native.py at first use, bound in io/flac_native.py), with the
+  built by _native_build.py at first use, bound in io/flac_native.py), with the
   pure-Python codec (io/flac_py.py) as the fallback when that build fails:
   `flac_codec()` says which one runs, and the fallback warns once with the
   compiler's error,

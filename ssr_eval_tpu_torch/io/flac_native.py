@@ -1,5 +1,5 @@
 """ctypes binding to the native IO library (the port's ``csrc/ssrio.cpp``),
-built by ``io/build_native.py`` into ``_paths.build_dir()`` on first use.
+built by ``_native_build.py`` into ``_paths.build_dir()`` on first use.
 
 The same functions as the JAX package's binding: `decode`, `decode_i16`,
 `decode_batch`, `encode`, and the capability flags `HAS_BATCH` and
@@ -18,7 +18,7 @@ import threading
 
 import numpy as np
 
-from ssr_eval_tpu_torch.io.build_native import build
+from ssr_eval_tpu_torch._native_build import CSRC, build
 
 _lock = threading.Lock()
 _bound: ctypes.CDLL | None = None
@@ -30,7 +30,7 @@ def _lib() -> ctypes.CDLL:
     with _lock:
         if _bound is not None:
             return _bound
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(CSRC / "ssrio.cpp")))
         f32p, i16p, i64p, ip = (ctypes.POINTER(t) for t in (ctypes.c_float, ctypes.c_int16, ctypes.c_int64, ctypes.c_int))
         lib.ssrio_decode_flac.restype = ctypes.c_int
         lib.ssrio_decode_flac.argtypes = [ctypes.c_char_p, ctypes.POINTER(f32p), i64p, ip, ip]

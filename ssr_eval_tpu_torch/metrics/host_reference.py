@@ -1,6 +1,6 @@
 """Float64 host implementation of the metric chain — the exact-precision
-cross-check mode (PARITY.md deviation 4), and the float64 oracle of the
-benchmark (`ssr_eval_tpu_torch.bench`).
+cross-check mode (PARITY.md deviation 4), and the float64 oracle of
+chip_smoke.py's card checks.
 
 The device pipeline computes metrics in float32; in strongly-masked bands
 the est-spectrogram sits at the f32 rounding floor, which makes per-pair

@@ -11,6 +11,11 @@ CPU (the card side runs only in chip_smoke.py):
   backward, and a forward that calls its activations differently raises;
 - `cotangent_grads` gives the reference its own loss gradient, and the
   gradient check at CPU against CPU reads 0 for both models.
+
+Also its copies of the repository's bench.py (held against it, whose main is
+never called): the float64 pipeline of the sweep phase's oracle check, and
+the well-conditioned testee through the port's engine against bench.py's
+through the JAX engine.
 """
 
 import math
@@ -23,8 +28,15 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import bench as jax_bench  # noqa: E402
 import chip_smoke as cs  # noqa: E402
+from ssr_eval_tpu.degrade.plan import expand_settings as j_expand  # noqa: E402
+from ssr_eval_tpu_torch.degrade.plan import expand_settings  # noqa: E402
+from ssr_eval_tpu_torch.harness.engine import EvalEngine  # noqa: E402
+from ssr_eval_tpu_torch.harness.fixtures import speechlike  # noqa: E402
+from ssr_eval_tpu_torch.io.audio import write_wav  # noqa: E402
 from ssr_eval_tpu_torch.metrics.kernels import _sispec  # noqa: E402
+from tests.test_torch_harness import PARITY  # noqa: E402
 
 
 def _cos(a, b):
@@ -100,3 +112,44 @@ def test_cotangent_grads_give_the_loss_gradient(kind):
     assert cs._leaf_delta(got, other, cs.TRAIN_GRAD_FLOOR) == (0.0, None)
     with torch.no_grad():
         assert math.isfinite(float(ref[2]()))
+
+
+@pytest.fixture(scope="module")
+def utts(tmp_path_factory):
+    """Two 2 s speech-like utterances at the sweep's rate, seeds 1000 + i
+    as in the sweep phase and bench.py."""
+    d = tmp_path_factory.mktemp("utts")
+    paths = [str(d / f"utt_{i:03d}.wav") for i in range(2)]
+    for i, p in enumerate(paths):
+        write_wav(p, speechlike(2.0, cs.SR, seed=1000 + i), cs.SR)
+    return paths
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_f64_pipeline_equals_bench_pys(utts, noisy):
+    noise = cs.make_noise() if noisy else None
+    assert cs.CUTOFFS == jax_bench.CUTOFFS and cs.SR == jax_bench.SR
+    got = cs.f64_pipeline_one(utts[0], cs.CUTOFFS, noise)
+    want = jax_bench._f64_pipeline_one(utts[0], jax_bench.CUTOFFS, noise)
+    assert list(got) == list(want) and len(got) == 7
+    assert got == want
+
+
+def test_noisy_testee_matches_bench_pys(utts):
+    """bench.py's _make_noisy_testee through the JAX engine and chip_smoke's
+    noisy testee through the port's, on two utterances: per pair within
+    tests/test_torch_harness.py's PARITY."""
+    cutoffs = [4000, 16000]
+    testee, noise = cs.noisy_testee(torch.device("cpu"))
+    want = jax_bench._engine(j_expand(setting_fft={"cutoff_freq": cutoffs}, sr=cs.SR),
+                             jax_bench._make_noisy_testee(noise), batch=2).evaluate_files(utts)
+    got = EvalEngine(expand_settings(setting_fft={"cutoff_freq": cutoffs}, sr=cs.SR), cs.SR, cs.SR, cs.SR, testee,
+                     batch_size=2, device="cpu").evaluate_files(utts)
+    n = 0
+    for p in utts:
+        assert list(got[p]) == list(want[p])
+        for key, m in want[p].items():
+            for k in cs.METRICS:
+                assert abs(got[p][key][k] - m[k]) <= PARITY[k], (p, key, k, got[p][key][k], m[k])
+            n += 1
+    assert n == 2 * len(cutoffs)

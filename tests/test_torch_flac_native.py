@@ -1,4 +1,4 @@
-"""The port's native FLAC IO (ssr_eval_tpu_torch.io.build_native, io.flac_native,
+"""The port's native FLAC IO (its build by ssr_eval_tpu_torch._native_build, io.flac_native,
 io.audio, the engine's native batch decode) on the CPU.
 
 The library is the port's own g++ build of its csrc/ssrio.cpp (a copy of
@@ -24,7 +24,8 @@ from ssr_eval_tpu_torch.harness.engine import EvalEngine
 from ssr_eval_tpu_torch.harness.fixtures import ensure_synthetic_vctk, speechlike
 from ssr_eval_tpu_torch.harness.helper import SSR_Eval_Helper
 from ssr_eval_tpu_torch.harness.testee import BatchedTestee
-from ssr_eval_tpu_torch.io import audio, build_native, flac_native, flac_py
+from ssr_eval_tpu_torch import _native_build
+from ssr_eval_tpu_torch.io import audio, flac_native, flac_py
 from ssr_eval_tpu_torch.io.audio import write_wav
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -113,7 +114,7 @@ def test_a_corrupt_file_in_a_batch_raises_naming_it(corrupt, tmp_path):
 
 
 def test_the_library_is_the_ports_own_build():
-    lib = build_native.build()
+    lib = _native_build.build(_native_build.CSRC / "ssrio.cpp")
     assert lib.parent == ROOT / "ssr_eval_tpu_torch" / "_build" and lib.name.startswith("ssrio-")
     assert Path(flac_native._lib()._name).resolve() == lib.resolve()
     assert ROOT / "ssr_eval_tpu" not in lib.resolve().parents
@@ -121,8 +122,8 @@ def test_the_library_is_the_ports_own_build():
 
 
 def test_a_failed_build_falls_back_with_a_warning(tmp_path, monkeypatch):
-    def broken():
-        raise RuntimeError("g++ failed: stand-in error")
+    def broken(src):
+        raise RuntimeError(f"g++ failed on {src.name}: stand-in error")
 
     monkeypatch.setattr(audio, "_native_state", [])
     monkeypatch.setattr(flac_native, "_bound", None)

@@ -45,10 +45,10 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_package_imports_nothing_a_wheel_lacks():
     """No package source imports the repository's tests, its test oracle or
-    the root bench.py; the benchmark keeps its own oracle
+    the root bench.py; the package keeps its own float64 oracle
     (metrics/host_reference.py)."""
     sources = [os.path.join(d, f) for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")]
-    assert os.path.join(PKG, "bench.py") in sources
+    assert os.path.join(PKG, "_native_build.py") in sources
     for path in sources:
         with open(path) as f:
             hit = OUTSIDE_THE_WHEEL.search(f.read())
@@ -57,7 +57,7 @@ def test_package_imports_nothing_a_wheel_lacks():
 
 def test_no_source_runs_make_or_loads_the_jax_packages_library():
     """The port builds its own copy of the IO source, csrc/ssrio.cpp, itself
-    (io/build_native.py, into _paths.build_dir()): `make -C native` writes
+    (_native_build.py, into _paths.build_dir()): `make -C native` writes
     into the JAX package, and the library committed there is the JAX
     package's."""
     sources = [os.path.join(ROOT, "chip_smoke.py")]

@@ -17,9 +17,9 @@ import pytest
 import setuptools
 
 import ssr_eval_tpu_torch
-from ssr_eval_tpu_torch import _paths
-from ssr_eval_tpu_torch.dsp import _build
+from ssr_eval_tpu_torch import _native_build, _paths
 from tests.port_install import build_wheel, copy_package, install_read_only, make_writable
+from tests.test_torch_native_build import fake_compilers
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "ssr_eval_tpu_torch"
@@ -51,7 +51,6 @@ res = ssr_eval_tpu_torch.test(test_data_root=root, auto_download=False, device="
 with open(sys.argv[1], "w") as f:
     json.dump({
         "file": ssr_eval_tpu_torch.__file__,
-        "bench": importlib.util.find_spec("ssr_eval_tpu_torch.bench").origin,
         "codec": codec,
         "library": flac_native._lib()._name if codec == "native" else None,
         "decoders": sorted(helpers[0].engine.stats.decoders),
@@ -93,17 +92,10 @@ def wheel(tmp_path_factory):
     return build_wheel(src, work / "dist")
 
 
-# The port's benchmark from the install: quick sizes on the CPU, no NVSR,
-# one OpenMP thread (it runs beside the two smoke runs and the suite's
-# other workers; see tests/test_torch_bench.py::one_torch_thread).
-BENCH_ENV = {"SSR_BENCH_QUICK": "1", "SSR_BENCH_CPU": "1", "SSR_BENCH_NVSR": "0", "OMP_NUM_THREADS": "1"}
-
-
 @pytest.fixture(scope="module")
 def installed(wheel, tmp_path_factory):
     """The wheel installed read-only, and the smoke run from it and from the
-    checkout, each in a subprocess with its own cwd and HOME; beside them
-    `python -m ssr_eval_tpu_torch.bench` from the install."""
+    checkout, each in a subprocess with its own cwd and HOME."""
     work = tmp_path_factory.mktemp("installed")
     target = install_read_only(wheel, work / "site")
     before = _files(target)
@@ -119,23 +111,12 @@ def installed(wheel, tmp_path_factory):
             proc = subprocess.Popen([sys.executable, "-c", CHILD, str(out)], cwd=cwd, env=env,
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             runs[name] = (proc, out, home)
-        bench_cwd, bench_home = work / "cwd_bench", work / "home_bench"
-        bench_cwd.mkdir()
-        bench_home.mkdir()
-        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XDG_CACHE_HOME")}
-        env.update(PYTHONPATH=str(target), HOME=str(bench_home), **BENCH_ENV)
-        bench_detail = work / "bench_detail.json"
-        bench = subprocess.Popen([sys.executable, "-m", "ssr_eval_tpu_torch.bench", "--detail", str(bench_detail)],
-                                 cwd=bench_cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         got = {}
         for name, (proc, out, home) in runs.items():
             log, _ = proc.communicate(timeout=300)
             assert proc.returncode == 0, f"{name} run failed:\n{log[-4000:]}"
             with open(out) as f:
                 got[name] = dict(json.load(f), home=home)
-        stdout, stderr = bench.communicate(timeout=300)
-        got["bench"] = {"rc": bench.returncode, "stdout": stdout, "stderr": stderr, "detail": bench_detail,
-                        "cwd": bench_cwd}
         after = _files(target)
     finally:
         make_writable(target)
@@ -153,7 +134,6 @@ def test_wheel_carries_every_module_and_both_sources_and_no_build_output(wheel):
     )
     want = sorted(modules + ["ssr_eval_tpu_torch/csrc/ssrio.cpp", "ssr_eval_tpu_torch/csrc/stft_magnitude.cu"])
     assert shipped == want
-    assert "ssr_eval_tpu_torch/bench.py" in shipped
     assert not any("/_build/" in n or "__pycache__" in n or n.endswith("pyproject.toml") for n in names)
     assert len(modules) > 60
 
@@ -229,26 +209,25 @@ def test_build_dir_follows_the_package_directorys_write_permission(case, tmp_pat
         pkg.chmod(0o755)
 
 
-def test_cuda_build_of_a_read_only_package_goes_to_the_cache(tmp_path, monkeypatch):
-    """build_all() writes each library and its ptxas log into build_dir();
-    a stand-in nvcc (this machine has none) writes the -o file."""
-    nvcc = tmp_path / "nvcc"
-    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n'
-                    'echo "ptxas info    : Used 1 registers"\n')
-    nvcc.chmod(0o755)
+@pytest.mark.parametrize("src", ["stft_magnitude.cu", "ssrio.cpp"])
+def test_cuda_build_of_a_read_only_package_goes_to_the_cache(src, tmp_path, monkeypatch):
+    """build() writes the CUDA library and its ptxas log, and the C++
+    library, into build_dir(); stand-in compilers (this machine has no
+    nvcc) write the -o file."""
+    bin_dir = fake_compilers(tmp_path / "bin")
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
     pkg = tmp_path / "pkg"
     pkg.mkdir(mode=0o555)
     monkeypatch.setattr(_paths, "PKG", pkg)
-    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     try:
-        paths = _build.build_all()
+        lib = _native_build.build(PKG / "csrc" / src)
     finally:
         pkg.chmod(0o755)
-    lib = paths["stft_magnitude"]
-    assert sorted(paths) == sorted(p.stem for p in (PKG / "csrc").glob("*.cu")) == ["stft_magnitude"]
-    assert lib.parent == tmp_path / "cache" / CACHE and lib.exists()
-    assert "Used 1 registers" in lib.with_suffix(".log").read_text()
+    assert sorted(p.name for p in (PKG / "csrc").iterdir() if p.is_file()) == ["ssrio.cpp", "stft_magnitude.cu"]
+    assert lib.parent == tmp_path / "cache" / CACHE and lib.exists() and lib.name.startswith(Path(src).stem + "-")
+    if src.endswith(".cu"):
+        assert "Used 1 registers" in lib.with_suffix(".log").read_text()
     assert os.listdir(pkg) == []
 
 
@@ -282,17 +261,3 @@ def test_installed_port_imports_no_jax_and_writes_nothing_into_the_install(insta
     assert installed["after"] == installed["before"]
     assert "ssr_eval_tpu_torch/csrc/ssrio.cpp" in installed["before"]
     assert not [f for f in installed["before"] if "_build" in Path(f).parts]
-
-
-def test_installed_port_runs_its_benchmark(installed):
-    """python -m ssr_eval_tpu_torch.bench resolves to the install and runs
-    there (quick sizes on the CPU): its last line and detail file, nothing
-    written into its cwd."""
-    run = installed["bench"]
-    assert run["rc"] == 0, run["stderr"][-4000:]
-    target = installed["target"]
-    assert Path(installed["install"]["bench"]).resolve() == (target / "ssr_eval_tpu_torch" / "bench.py").resolve()
-    line = json.loads(run["stdout"].strip().splitlines()[-1])
-    assert line["unit"] == "utt/s/chip" and line["value"] > 0 and line["detail"]["backend"] == "cpu"
-    assert line["detail_file"] == str(run["detail"]) and run["detail"].exists()
-    assert os.listdir(run["cwd"]) == []

@@ -21,7 +21,9 @@ import jax.numpy as jnp
 from ssr_eval_tpu.dsp import resample as jrs
 from ssr_eval_tpu.metrics import kernels as jmk
 from ssr_eval_tpu_torch.dsp import resample as trs
+from ssr_eval_tpu_torch.metrics import host_reference
 from ssr_eval_tpu_torch.metrics import kernels as tmk
+from tests import oracles
 from tests.oracles import lsd_np, sispec_np, ssim_np
 
 
@@ -129,3 +131,22 @@ def test_spectral_metrics_match_jax(rate):
         w = np.asarray(want[k])
         assert g.shape == (3,)
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 441), (2229, 480), (743, 160)])
+def test_oracle_copy_equals_the_test_oracle(n_fft, hop):
+    """metrics/host_reference.py (metrics_backend="host_float64") is a
+    bit-identical copy of tests/oracles.py's float64 functions."""
+    rng = np.random.default_rng(n_fft)
+    x = rng.standard_normal(9000)
+    y = x + 0.1 * rng.standard_normal(9000)
+    Z = host_reference.stft_np(x, n_fft, hop)
+    np.testing.assert_array_equal(Z, oracles.stft_np(x, n_fft, hop))
+    for length in (len(x), None):
+        np.testing.assert_array_equal(host_reference.istft_np(Z, n_fft, hop, length=length),
+                                      oracles.istft_np(Z, n_fft, hop, length=length))
+    est, tgt = np.abs(host_reference.stft_np(y, n_fft, hop)).T, np.abs(Z).T
+    for name in ("lsd_np", "sispec_np", "ssim_np"):
+        assert getattr(host_reference, name)(est, tgt) == getattr(oracles, name)(est, tgt), name
+    log_e, log_t = np.log10(est + 1e-12), np.log10(tgt + 1e-12)
+    assert host_reference.sispec_np(log_e, log_t) == oracles.sispec_np(log_e, log_t)

@@ -55,7 +55,7 @@ RENAMED = {
     "utils.flops:compiled_cost": "utils.flops:count_cost",
 }
 # A whole module under another path: its names are looked up there.
-MOVED = {"dsp.pallas_stft": "dsp.stft_kernel"}
+MOVED = {"dsp.pallas_stft": "dsp.stft_kernel", "io.build_native": "_native_build"}
 
 # "jax module" or "jax module:name" -> why the port has no counterpart
 # (ROADMAP.md 1.17).
